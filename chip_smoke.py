@@ -67,7 +67,7 @@ PAPER_KW = dict(n_samples=600_000, n_features=10_000, density=0.001,
 PAPER_W = 64
 PAPER_ROUNDS = 2
 
-# the bound: H100 SXM peaks (the on-chip-measurement guide's table)
+# the bound: H100 SXM peak memory rate and float32 rate
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # parity: |kernel - plain| <= PARITY_RTOL * max(1, max|plain|), per output

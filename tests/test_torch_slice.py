@@ -180,7 +180,7 @@ def test_port_generated_shards_match_jax():
 
 
 # ---------------------------------------------------------------------------
-# float32: the registry's default instance (the issue's W=8, 6 rounds)
+# float32: the registry's default instance (W=8, 6 rounds)
 # ---------------------------------------------------------------------------
 
 
