@@ -2,23 +2,31 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py                 # every phase, as a check runs it
-    python3 chip_smoke.py --phases 1,2    # build and hold the kernels only
+    python3 chip_smoke.py --phases 1,2,5  # the kernels and serving only
 
-Phases, one line each (any failure exits non-zero; nothing is caught):
+Phases, one line or a few each (any failure exits non-zero; nothing is
+caught):
   1. environment: the card (nvidia-smi name and power limit), torch and
      CUDA versions, the kernels' build time;
   2. kernel parity: each CUDA kernel against its plain PyTorch version on
-     the card, on small ragged shapes and at the main path's shapes, with
-     the kernel's, the plain version's and the bound's times;
+     the card, on small ragged shapes and at the main paths' shapes, with
+     the kernel's, the plain version's, the bound's and (for attention)
+     scaled_dot_product_attention's times;
   3. small instances on the card: the engine suite's logreg instance
      against the reference's trace (ENGINE_ANCHOR), and the registry's
      default instance in float64 against the same run on the CPU and in
      float32 (both engines) against that float64 run;
-  4. the main path at the paper's size: N=600 000, d=10 000, W=64, the
-     batched engine with kernel="cuda", through ``api.run``, with every
-     kernel's launch count read around that run;
-  5. the kernels line: {"kernels": [...]};
-  6. the last line: {"ok": true, "device": {...}}.
+  4. the logreg main path at the paper's size: N=600 000, d=10 000, W=64,
+     the batched engine with kernel="cuda", through ``api.run``, with the
+     margin and z-update kernels' launch counts read around that run;
+  5. serving: reduced granite_8b in float32 (2 layers, full and windowed
+     attention) on the card against the same run on the CPU, then
+     granite_8b at full width and depth in bfloat16 through
+     ``repro_torch.launch.serve.main`` (batch 8, prompt 2048, 64 tokens),
+     with the attention kernels' launch counts read around that run and
+     prefill-then-decode held against a prefill over the longer prompt;
+then the kernels line {"kernels": [...]} (when phases 2, 4 and 5 ran) and
+the last line {"ok": true, "device": {...}}.
 
 It imports torch and the port only.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero before printing a result.
@@ -26,6 +34,8 @@ checkout of the repository, it exits non-zero before printing a result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -67,11 +77,31 @@ PAPER_KW = dict(n_samples=600_000, n_features=10_000, density=0.001,
 PAPER_W = 64
 PAPER_ROUNDS = 2
 
-# the bound: H100 SXM peak memory rate and float32 rate
+# the bound: H100 SXM peak memory rate, float32 rate and dense bf16
+# tensor-core rate (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 # parity: |kernel - plain| <= PARITY_RTOL * max(1, max|plain|), per output
 PARITY_RTOL = 1e-5
+# attention parity, same form: float32 differs only by summation order;
+# bf16 by rounding P to bf16 before P.V (the kernels do, as the TPU
+# kernels do; the plain versions keep P in float32)
+ATTN_RTOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+# the serving main path: granite_8b at full width and depth, bf16
+SERVE_ARGV = ["--arch", "granite_8b", "--preset", "full", "--batch", "8",
+              "--prompt-len", "2048", "--gen-len", "64"]
+SERVE_B, SERVE_P, SERVE_GEN = 8, 2048, 64
+# prefill-then-decode against a prefill over P + 1 tokens: |gap| <= rtol
+# * max(1, max|prefill logits|).  bf16 at full depth: tests/test_models.py's
+# 3e-2, taken against the logits' scale, since bf16 rounding of the
+# residual stream differs between the two paths in each of 36 layers;
+# float32 at full width (2 layers): summation order only
+SERVE_RTOL = {"bfloat16": 3e-2, "float32": 1e-4}
+SERVE_F32_LAYERS = 2
+# the reduced model on the card against the CPU, float32
+REDUCED_RTOL = 1e-4
 
 
 def fail(msg: str):
@@ -128,19 +158,42 @@ def graph_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def median_ms(torch, fn, reps: int, warmup: int = 1) -> float:
+    """Median device time of one call of ``fn``, each between its own
+    pair of CUDA events.  For calls long enough that the host keeps up."""
+    for _ in range(warmup):
+        fn()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for start, stop in events:
+        start.record()
+        fn()
+        stop.record()
+    torch.cuda.synchronize()
+    times = sorted(a.elapsed_time(b) for a, b in events)
+    return times[len(times) // 2]
+
+
+def graph_median_ms(torch, fn, reps: int, rounds: int = 5) -> float:
+    """Median over ``rounds`` replays of ``graph_ms``: device time of one
+    call with the host taken out."""
+    return sorted(graph_ms(torch, fn, reps) for _ in range(rounds))[
+        rounds // 2]
+
+
+def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def max_err(torch, got, want, name: str) -> float:
+def max_err(torch, got, want, name: str, rtol: float = PARITY_RTOL) -> float:
     err = float((got.double() - want.double()).abs().max()) if got.numel() \
         else 0.0
     scale = max(1.0, float(want.double().abs().max()) if want.numel() else 0)
-    if not math.isfinite(err) or err > PARITY_RTOL * scale:
+    if not math.isfinite(err) or err > rtol * scale:
         fail(f"{name}: max |kernel - plain| = {err:.3e} exceeds "
-             f"{PARITY_RTOL:g} * {scale:.3e}")
+             f"{rtol:g} * {scale:.3e}")
     return err
 
 
@@ -260,6 +313,357 @@ def phase_parity(torch, lv, st, ref):
         f"kernel {eager_k:.4f} ms, plain {eager_p:.4f} ms; bound "
         f"{b_ms:.6f} ms ({b_by})")
     return results
+
+
+# ---------------------------------------------------------------------------
+# phase 2, attention: flash (prefill) and decode kernels
+# ---------------------------------------------------------------------------
+
+# (B, S, H, KV, hd, window): MHA, GQA G = 4 with a window, MQA, G = 3 and
+# G = 7 with hd 128, a window inside one tile, hd 80; lengths off the
+# 64-row / 64-key tiles
+FLASH_SMALL = [(1, 256, 4, 4, 64, None), (2, 200, 8, 2, 32, 40),
+               (1, 130, 8, 1, 16, None), (2, 77, 12, 4, 128, None),
+               (1, 100, 56, 8, 128, None), (1, 64, 32, 8, 128, 16),
+               (2, 97, 32, 32, 80, None)]
+# (B, Smax, H, KV, hd, positions): differing positions, position 0, a
+# cache off the 256-slot chunk, a ring cache that has wrapped (pos >=
+# Smax), G = 1, 4, 7, 8
+DECODE_SMALL = [(2, 512, 4, 4, 64, [170, 511]),
+                (3, 300, 8, 2, 32, [0, 299, 57]),
+                (2, 300, 4, 1, 16, [349, 12]),
+                (2, 2112, 32, 8, 128, [2047, 100]),
+                (1, 1000, 56, 8, 128, [999]),
+                (2, 40, 8, 1, 128, [1000, 39])]
+
+
+def attn_inputs(torch, shapes, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(s, generator=g, device="cuda").mul_(0.5).to(dtype)
+            for s in shapes]
+
+
+def flash_flops(B, S, H, hd, window):
+    """4 B H hd times the visible (query, key) pairs of causal attention."""
+    pairs = sum(min(i + 1, window or i + 1) for i in range(S))
+    return 4.0 * B * H * hd * pairs
+
+
+def phase_attention_parity(torch, fa, dec, attention, F):
+    """Flash and decode kernels against their plain versions, small ragged
+    shapes in float32 and bf16, then the serving path's shapes in bf16
+    with the kernel's, plain version's, bound's and SDPA's times."""
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        rtol = ATTN_RTOL[name]
+        for B, S, H, KV, hd, window in FLASH_SMALL:
+            q, k, v = attn_inputs(torch, [(B, S, H, hd), (B, S, KV, hd),
+                                          (B, S, KV, hd)], dtype, S + H)
+            got = fa.flash_attention_cuda(q, k, v, window=window)
+            want = attention.block_attention(q, k, v, window=window)
+            torch.cuda.synchronize()
+            worst[("flash", name)] = max(worst.get(("flash", name), 0.0),
+                                         max_err(torch, got, want,
+                                                 f"flash {name} {(B, S, H, KV, hd, window)}",
+                                                 rtol))
+        for B, Smax, H, KV, hd, pos in DECODE_SMALL:
+            q, kc, vc = attn_inputs(torch, [(B, 1, H, hd), (B, Smax, KV, hd),
+                                            (B, Smax, KV, hd)], dtype,
+                                    Smax + H)
+            p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+            got = dec.decode_attention_cuda(q, kc, vc, p)
+            want = attention.decode_attention(q, kc, vc, p)
+            torch.cuda.synchronize()
+            worst[("decode", name)] = max(worst.get(("decode", name), 0.0),
+                                          max_err(torch, got, want,
+                                                  f"decode {name} {(B, Smax, H, KV, hd, pos)}",
+                                                  rtol))
+    say(f"[2] attention, small ragged shapes held (tolerance x max(1, "
+        f"|plain|): float32 {ATTN_RTOL['float32']:g}, bf16 "
+        f"{ATTN_RTOL['bfloat16']:g}): flash {worst[('flash', 'float32')]:.2e}"
+        f" / {worst[('flash', 'bfloat16')]:.2e}, decode "
+        f"{worst[('decode', 'float32')]:.2e} / "
+        f"{worst[('decode', 'bfloat16')]:.2e} (float32 / bf16)")
+
+    results = {}
+    bf = torch.bfloat16
+    rtol = ATTN_RTOL["bfloat16"]
+    # prefill: (8, 2048, 32 heads over 8 KV heads, 128)
+    B, S, H, KV, hd = SERVE_B, SERVE_P, 32, 8, 128
+    q, k, v = attn_inputs(torch, [(B, S, H, hd), (B, S, KV, hd),
+                                  (B, S, KV, hd)], bf, 7)
+    got = fa.flash_attention_cuda(q, k, v)
+    want = attention.block_attention(q, k, v)
+    torch.cuda.synchronize()
+    err = max_err(torch, got, want, "flash at the serving shape", rtol)
+    del got, want
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    ms_k = median_ms(torch, lambda: fa.flash_attention_cuda(q, k, v), 7)
+    ms_p = median_ms(torch, lambda: attention.block_attention(q, k, v), 3)
+    ms_l = median_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 7)
+    n_ops = flash_flops(B, S, H, hd, None)
+    n_bytes = 2.0 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
+    del qt, kt, vt
+    # the scalar-FMA body, which float32 (and hd other than 64/128) runs
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    ms_f32 = median_ms(torch, lambda: fa.flash_attention_cuda(q32, k32, v32),
+                       3)
+    del q32, k32, v32
+    results["flash_attention"] = dict(
+        ms=ms_k, plain_ms=ms_p, library_ms=ms_l, bound_ms=b_ms,
+        bound_by=b_by, max_abs_err=max(err, worst[("flash", "bfloat16")],
+                                       worst[("flash", "float32")]),
+        shape=[B, S, H, KV, hd], float32_scalar_ms=ms_f32)
+    say(f"[2] flash at (B, S, H, KV, hd) = {(B, S, H, KV, hd)} bf16: max err"
+        f" {err:.2e}; kernel {ms_k:.3f} ms (tensor cores), plain {ms_p:.3f} "
+        f"ms, SDPA {ms_l:.3f} ms, bound {b_ms:.3f} ms ({b_by}: "
+        f"{n_ops:.3e} flop at 989 TFLOP/s); {n_ops / ms_k / 1e9:.1f} TFLOP/s"
+        f" achieved; the scalar body in float32 {ms_f32:.3f} ms "
+        f"({n_ops / ms_f32 / 1e9:.1f} TFLOP/s)")
+    del q, k, v
+
+    # decode: caches of P + gen = 2112 slots, position P + 31 (mid-run)
+    Smax = SERVE_P + SERVE_GEN
+    pos_val = SERVE_P + SERVE_GEN // 2 - 1
+    q, kc, vc = attn_inputs(torch, [(B, 1, H, hd), (B, Smax, KV, hd),
+                                    (B, Smax, KV, hd)], bf, 8)
+    p = torch.full((B,), pos_val, dtype=torch.int32, device="cuda")
+    got = dec.decode_attention_cuda(q, kc, vc, p)
+    want = attention.decode_attention(q, kc, vc, p)
+    torch.cuda.synchronize()
+    err = max_err(torch, got, want, "decode at the serving shape", rtol)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, kc, vc))
+    mask = (torch.arange(Smax, device="cuda")[None, :] <= p[:, None])[
+        :, None, None, :]
+
+    def kern():
+        dec.decode_attention_cuda(q, kc, vc, p)
+
+    def plain():
+        attention.decode_attention(q, kc, vc, p)
+
+    def library():
+        F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                       enable_gqa=True)
+    eager_k = median_ms(torch, kern, 21, warmup=3)
+    ms_k = graph_median_ms(torch, kern, 50)
+    ms_p = graph_median_ms(torch, plain, 20)
+    ms_l = graph_median_ms(torch, library, 50)
+    live = pos_val + 1
+    n_bytes = 2.0 * (2 * B * live * KV * hd + 2 * B * H * hd) + 4 * B
+    n_ops = 4.0 * B * H * hd * live
+    b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
+    results["decode_attention"] = dict(
+        ms=ms_k, plain_ms=ms_p, library_ms=ms_l, bound_ms=b_ms,
+        bound_by=b_by, eager_ms=eager_k,
+        max_abs_err=max(err, worst[("decode", "bfloat16")],
+                        worst[("decode", "float32")]),
+        shape=[B, Smax, H, KV, hd, live])
+    say(f"[2] decode at (B, Smax, H, KV, hd) = {(B, Smax, H, KV, hd)} bf16, "
+        f"{live} live slots: max err {err:.2e}; device time (CUDA graph) "
+        f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, SDPA {ms_l:.4f} ms; "
+        f"per eager call kernel {eager_k:.4f} ms; bound {b_ms:.4f} ms "
+        f"({b_by}: {n_bytes / 1e6:.1f} MB at 3.35 TB/s)")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 5: serving
+# ---------------------------------------------------------------------------
+
+
+def tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def phase_serve_reduced(torch, configs, model, fa, dec):
+    """reduced(granite_8b), float32, 2 layers: prefill and 8 greedy decode
+    steps on the card (through the kernels) and on the CPU (plain
+    versions) from the same parameters, fed the CPU's tokens."""
+    B, P, steps = 4, 40, 8
+    for window in (None, 16):
+        cfg = configs.reduced(configs.get_config("granite_8b"),
+                              sliding_window=window)
+        gen = torch.Generator().manual_seed(0)
+        cpu = model.init_params(cfg, generator=gen, device="cpu")
+        card = tree_to(cpu, "cuda")
+        toks = torch.randint(0, cfg.vocab_size, (B, P),
+                             generator=torch.Generator().manual_seed(1))
+        caches = [model.init_cache(cfg, B, P + steps, device=d)
+                  for d in ("cpu", "cuda")]
+        fa.reset_launches()
+        dec.reset_launches()
+        worst = 0.0
+        with torch.inference_mode():
+            lc, _ = model.prefill(cpu, cfg, {"tokens": toks}, caches[0])
+            lg, _ = model.prefill(card, cfg, {"tokens": toks.cuda()},
+                                  caches[1])
+            worst = max(worst, max_err(torch, lg.cpu(), lc,
+                                       f"reduced prefill window={window}",
+                                       REDUCED_RTOL))
+            nxt = lc[:, -1].argmax(-1)
+            for i in range(steps):
+                pos = torch.full((B,), P + i, dtype=torch.int32)
+                lc, _ = model.decode_step(cpu, cfg, {
+                    "tokens": nxt[:, None], "positions": pos}, caches[0])
+                lg, _ = model.decode_step(card, cfg, {
+                    "tokens": nxt[:, None].cuda(), "positions": pos.cuda()},
+                    caches[1])
+                worst = max(worst, max_err(
+                    torch, lg.cpu(), lc,
+                    f"reduced decode step {i} window={window}", REDUCED_RTOL))
+                nxt = lc[:, 0].argmax(-1)
+            worst = max(worst, max_err(torch, caches[1]["k"].cpu(),
+                                       caches[0]["k"], "reduced k cache",
+                                       REDUCED_RTOL))
+        n_fa, n_dec = fa.LAUNCHES["flash_attention"], \
+            dec.LAUNCHES["decode_attention"]
+        if n_fa != cfg.n_layers or n_dec != cfg.n_layers * steps:
+            fail(f"reduced run window={window}: {n_fa} flash and {n_dec} "
+                 f"decode launches, expected {cfg.n_layers} and "
+                 f"{cfg.n_layers * steps}")
+        say(f"[5] reduced granite_8b (float32, 2 layers, window={window}, B="
+            f"{B}, prompt {P}, {steps} decode steps): card vs CPU logits "
+            f"{worst:.2e} (tolerance {REDUCED_RTOL:g} x max(1, |CPU|)); "
+            f"launches flash {n_fa}, decode {n_dec}")
+
+
+def phase_serve(torch, configs, model, serve, fa, dec, kernel_ms):
+    """granite_8b at full width and depth, bf16, through serve.main."""
+    cfg = configs.get_config("granite_8b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    with torch.inference_mode():
+        params = model.init_params(
+            cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+            device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.time() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    say(f"[5] granite_8b: {n_params / 1e9:.3f} B parameters drawn on the "
+        f"card in {t_init:.1f} s ({torch.cuda.memory_allocated() / 1e9:.2f}"
+        f" GB)")
+
+    stats = {}
+    fa.reset_launches()
+    dec.reset_launches()
+    out = serve.main(SERVE_ARGV, params=params, stats=stats)
+    launches = {"flash_attention": fa.LAUNCHES["flash_attention"],
+                "decode_attention": dec.LAUNCHES["decode_attention"]}
+    peak = torch.cuda.max_memory_allocated()
+    steps = SERVE_GEN - 1
+    want = {"flash_attention": cfg.n_layers,
+            "decode_attention": cfg.n_layers * steps}
+    if launches != want:
+        fail(f"serving launches {launches}, expected {want}")
+    if tuple(out.shape) != (SERVE_B, SERVE_GEN) or not bool(
+            ((out >= 0) & (out < cfg.vocab_size)).all()):
+        fail(f"serving tokens: shape {tuple(out.shape)} or out of "
+             f"[0, {cfg.vocab_size})")
+    if not stats["all_finite"]:
+        fail("serving produced non-finite logits")
+
+    # prefill-then-decode: the first decode step's logits (position P)
+    # against the last logits of a prefill over the prompt + that token
+    with torch.inference_mode():
+        toks = torch.cat([stats["prompt"], out[:, :1].cuda()], dim=1)
+        cache = model.init_cache(cfg, SERVE_B, SERVE_P + SERVE_GEN,
+                                 device="cuda")
+        ref_logits, _ = model.prefill(params, cfg, {"tokens": toks}, cache,
+                                      last_only=True)
+        held = hold_logits(torch, stats["first_decode_logits"],
+                           ref_logits[:, 0], SERVE_RTOL["bfloat16"],
+                           "prefill-then-decode, bf16, 36 layers")
+        # device time of one decode step (mid-run position, the phase-2
+        # decode shape), captured in a CUDA graph: the host taken out
+        step = {"tokens": out[:, :1].cuda(), "positions": torch.full(
+            (SERVE_B,), SERVE_P + SERVE_GEN // 2 - 1, dtype=torch.int32,
+            device="cuda")}
+        dev_ms = graph_median_ms(
+            torch, lambda: model.decode_step(params, cfg, step, cache), 4, 3)
+    del cache, ref_logits, params
+    torch.cuda.empty_cache()
+    held32 = serve_f32_check(torch, model, cfg, toks)
+
+
+    t_pre, t_dec = stats["prefill_s"], stats["decode_s"]
+    ms_step = t_dec / steps * 1e3
+    attn_ms = cfg.n_layers * kernel_ms.get("decode_attention", float("nan"))
+    say(f"[5] serving granite_8b (B={SERVE_B}, prompt {SERVE_P}, "
+        f"{SERVE_GEN} tokens, bf16): prefill {t_pre:.3f} s "
+        f"({SERVE_B * SERVE_P / t_pre:.0f} tok/s); decode {ms_step:.3f} ms "
+        f"per step, {SERVE_B * steps / t_dec:.1f} tok/s; launches {launches};"
+        f" peak device memory {peak / 1e9:.2f} GB")
+    say(f"[5] per decode step: device time {dev_ms:.3f} ms (one step in a "
+        f"CUDA graph) of {ms_step:.3f} ms eager, host share "
+        f"{1 - dev_ms / ms_step:.3f}; {cfg.n_layers} decode launches x "
+        f"{kernel_ms.get('decode_attention', float('nan')):.4f} ms (phase-2 "
+        f"device time) = {attn_ms:.3f} ms; prefill: "
+        f"{cfg.n_layers} flash launches x "
+        f"{kernel_ms.get('flash_attention', float('nan')):.3f} ms = "
+        f"{cfg.n_layers * kernel_ms.get('flash_attention', float('nan')) / 1e3:.3f}"
+        f" s of {t_pre:.3f} s")
+    for name, (gap, scale, rel, same) in (
+            ("bf16, 36 layers", held),
+            (f"float32, {SERVE_F32_LAYERS} layers", held32)):
+        say(f"[5] prefill-then-decode held at full width, {name}: max "
+            f"|decode - prefill(P+1)| {gap:.3e} of max |logit| {scale:.3f}, "
+            f"relative L2 {rel:.3e}, same argmax in {same:.3f} of rows")
+    say(f"[5] tokens in [0, {cfg.vocab_size}), all logits finite")
+    return launches, dict(prefill_s=t_pre, decode_ms_per_step=ms_step,
+                          decode_device_ms_per_step=dev_ms, peak_gb=peak / 1e9)
+
+
+def hold_logits(torch, got, want, rtol, name):
+    """|got - want| <= rtol * max(1, max|want|); returns (max gap, max
+    |want|, relative L2 gap, share of rows with the same argmax)."""
+    gap = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if not math.isfinite(gap) or gap > rtol * max(1.0, scale):
+        fail(f"{name}: max |decode - prefill| {gap:.3e} exceeds {rtol:g} x "
+             f"max(1, {scale:.3e})")
+    rel = float((got - want).norm() / want.norm())
+    same = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    return gap, scale, rel, same
+
+
+def serve_f32_check(torch, model, cfg, toks):
+    """granite_8b at full width in float32, SERVE_F32_LAYERS layers:
+    prefill over P tokens, one decode step at P, against a prefill over
+    P + 1 tokens — both kernels, without bf16 rounding."""
+    cfg32 = dataclasses.replace(cfg, n_layers=SERVE_F32_LAYERS,
+                                dtype="float32")
+    with torch.inference_mode():
+        params = model.init_params(
+            cfg32, generator=torch.Generator(device="cuda").manual_seed(1),
+            device="cuda")
+        cache = model.init_cache(cfg32, SERVE_B, SERVE_P + 1, device="cuda")
+        model.prefill(params, cfg32, {"tokens": toks[:, :-1]}, cache,
+                      last_only=True)
+        got, _ = model.decode_step(params, cfg32, {
+            "tokens": toks[:, -1:], "positions": torch.full(
+                (SERVE_B,), SERVE_P, dtype=torch.int32, device="cuda")},
+            cache)
+        cache = model.init_cache(cfg32, SERVE_B, SERVE_P + 1, device="cuda")
+        want, _ = model.prefill(params, cfg32, {"tokens": toks}, cache,
+                                last_only=True)
+        return hold_logits(torch, got[:, 0], want[:, 0],
+                           SERVE_RTOL["float32"],
+                           "prefill-then-decode, float32")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 # ---------------------------------------------------------------------------
@@ -429,7 +833,7 @@ def phase_main(torch, api, problems, SchedulerConfig, lv, st, ref,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4",
+    ap.add_argument("--phases", default="1,2,3,4,5",
                     help="comma-separated phases to run (default: all)")
     phases = {int(p) for p in ap.parse_args(argv).phases.split(",")}
 
@@ -440,11 +844,16 @@ def main(argv=None):
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this needs a CUDA card")
     sys.path.insert(0, str(SRC))
-    from repro_torch import api, problems
+    import torch.nn.functional as F
+    from repro_torch import api, configs, problems
     from repro_torch.core.admm import AdmmOptions
     from repro_torch.kernels import build, ref
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import logistic_vjp as lv
     from repro_torch.kernels import soft_threshold as st
+    from repro_torch.launch import serve
+    from repro_torch.models import attention, model
     from repro_torch.runtime import PoolConfig, SchedulerConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -462,16 +871,24 @@ def main(argv=None):
             if "registers" in line or "spill" in line:
                 say(f"[1] {name}: {line.strip()}")
 
-    results = phase_parity(torch, lv, st, ref) if 2 in phases else {}
+    results = {}
+    if 2 in phases:
+        results.update(phase_parity(torch, lv, st, ref))
+        results.update(phase_attention_parity(torch, fa, dec, attention, F))
     if 3 in phases:
         phase_small(torch, api, SchedulerConfig, AdmmOptions, PoolConfig,
                     lv, st)
-    if 4 not in phases:
-        say(f"phases {sorted(phases)} passed")
-        return
-    launches = phase_main(torch, api, problems, SchedulerConfig, lv, st,
-                          ref, {k: r["ms"] for k, r in results.items()})
-    if 2 not in phases:
+    kernel_ms = {k: r["ms"] for k, r in results.items()}
+    launches = {}
+    if 4 in phases:
+        launches.update(phase_main(torch, api, problems, SchedulerConfig, lv,
+                                   st, ref, kernel_ms))
+    if 5 in phases:
+        gc.collect()
+        phase_serve_reduced(torch, configs, model, fa, dec)
+        launches.update(phase_serve(torch, configs, model, serve, fa, dec,
+                                    kernel_ms)[0])
+    if not {2, 4, 5} <= phases:
         say(f"phases {sorted(phases)} passed")
         return
 
@@ -483,6 +900,11 @@ def main(argv=None):
                   "src/repro/kernels/logistic_vjp.py:41", False),
         "soft_threshold": ("soft_threshold", "soft_threshold",
                            "src/repro/kernels/soft_threshold.py:20", True),
+        "flash_attention": ("flash_attention", "flash_attention",
+                            "src/repro/kernels/flash_attention.py:28", True),
+        "decode_attention": ("decode_attention", "decode_attention",
+                             "src/repro/kernels/decode_attention.py:26",
+                             True),
     }
     kernels = []
     for key, (name, src, replaces, on_path) in meta.items():
@@ -491,9 +913,11 @@ def main(argv=None):
             name=name, route="cuda", source=source.format(src),
             replaces=replaces, launches=launches[key],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
-            on_path=on_path, shape=r["shape"],
-            **{k: r[k] for k in ("eager_ms", "eager_plain_ms") if k in r}))
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r.get("library_ms"), on_path=on_path,
+            shape=r["shape"],
+            **{k: r[k] for k in ("eager_ms", "eager_plain_ms",
+                                 "float32_scalar_ms") if k in r}))
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -19,7 +19,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
-SOURCES = ("logistic_vjp", "soft_threshold")
+SOURCES = ("logistic_vjp", "soft_threshold", "flash_attention",
+           "decode_attention")
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -4,7 +4,7 @@ Dispatch goes by the tensor's device and nothing else: a CPU tensor runs
 the plain version in ``ref.py``; a CUDA tensor launches the kernel, and a
 kernel that cannot build or launch raises.  Nothing falls back.
 
-Every wrapper takes a leading worker axis: A (W, N, D), b and mask (W, N),
+The margin wrappers take a leading worker axis: A (W, N, D), b and mask (W, N),
 x (W, D) give (loss (W,), grad (W, D)); the unbatched forms drop W.  Shards
 are staged unpadded; the kernels mask ragged edges themselves, so no call
 copies A.
@@ -13,9 +13,12 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import decode_attention as dec_k
+from repro_torch.kernels import flash_attention as fa_k
 from repro_torch.kernels import logistic_vjp as lv_k
 from repro_torch.kernels import ref
 from repro_torch.kernels import soft_threshold as st_k
+from repro_torch.models import attention as attn_mod
 
 
 def _margin(A, b, x, mask, *, loss: str, gamma: float):
@@ -59,3 +62,21 @@ def fused_z_update(omega_bar, z_old, thr: float):
                                         z_old.contiguous(), thr)
     return ref.soft_threshold_ref(
         omega_bar, z_old, torch.tensor(thr, dtype=torch.float32))
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None):
+    """q (B,S,H,hd), k/v (B,Skv,KV,hd) -> (B,S,H,hd), in the model's layout
+    (no transpose on either path)."""
+    if q.is_cuda:
+        return fa_k.flash_attention_cuda(q, k, v, causal=causal,
+                                         window=window)
+    return attn_mod.block_attention(q, k, v, causal=causal, window=window)
+
+
+def decode_attention(q, k_cache, v_cache, positions):
+    """q (B,1,H,hd), caches (B,Smax,KV,hd), positions (B,) -> (B,1,H,hd).
+    On the card the cache is read in place; positions go as int32."""
+    if q.is_cuda:
+        return dec_k.decode_attention_cuda(
+            q, k_cache, v_cache, positions.to(torch.int32).contiguous())
+    return attn_mod.decode_attention(q, k_cache, v_cache, positions)

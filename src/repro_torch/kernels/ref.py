@@ -3,13 +3,16 @@
 They are what a CPU tensor runs, what the tests hold against the JAX
 package, and what ``chip_smoke.py`` holds each kernel against on the card.
 Shapes carry any leading batch axes: a (..., N, D), b and mask (..., N),
-x (..., D).  Rows with mask 0 contribute exactly zero.
+x (..., D).  Rows with mask 0 contribute exactly zero.  The attention
+kernels' plain versions are the model's own functions in
+``models/attention.py``, as in the reference.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import prox as prox_mod
+from repro_torch.models import attention as attn_mod
 
 
 def _margins(a, x):
@@ -46,3 +49,13 @@ def soft_threshold_ref(omega, z_old, thr):
     z_new = prox_mod.soft_threshold(omega, thr)
     diff = z_new - z_old
     return z_new, torch.sum(diff * diff), torch.count_nonzero(z_new)
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=None):
+    """q (B,S,H,hd), k/v (B,Skv,KV,hd) -> (B,S,H,hd).  Naive oracle."""
+    return attn_mod.naive_attention(q, k, v, causal=causal, window=window)
+
+
+def decode_attention_ref(q, k_cache, v_cache, positions):
+    """q (B,1,H,hd), caches (B,Smax,KV,hd), positions (B,) -> (B,1,H,hd)."""
+    return attn_mod.decode_attention(q, k_cache, v_cache, positions)
