@@ -26,8 +26,9 @@ caught):
      with the attention kernels' launch counts read around that run, and
      prefill-then-decode held against a prefill over the longer prompt, in
      bfloat16 and, at full width and depth too, in float32;
-then the kernels line {"kernels": [...]} (when phases 2, 4 and 5 ran) and
-the last line {"ok": true, "device": {...}}.
+then the kernels line {"kernels": [...]} (when phases 2, 4 and 5 ran; each
+entry names the kernel's design in "body") and the last line
+{"ok": true, "device": {...}}.
 
 It imports torch and the port only.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero before printing a result.
@@ -308,20 +309,31 @@ def phase_parity(torch, lv, st, ref):
 
 # (B, S, H, KV, hd, window): MHA, GQA G = 4 with a window, MQA, G = 3 and
 # G = 7 with hd 128, a window inside one tile, hd 80; lengths off the
-# 64-row / 64-key tiles
+# 64-row / 64-key tiles.  Then for the bf16 wgmma body (hd 64 and 128,
+# 128-row blocks, 128-key tiles in a ring of 4 or 3 stages): lengths off
+# the tile and under one tile, G = 5 and G = 7, a window narrower than a
+# tile, and 1 100 keys (9 tiles) so each ring wraps at least twice
 FLASH_SMALL = [(1, 256, 4, 4, 64, None), (2, 200, 8, 2, 32, 40),
                (1, 130, 8, 1, 16, None), (2, 77, 12, 4, 128, None),
                (1, 100, 56, 8, 128, None), (1, 64, 32, 8, 128, 16),
-               (2, 97, 32, 32, 80, None)]
-# (B, Smax, H, KV, hd, positions): differing positions, position 0, a
-# cache off the 256-slot chunk, a ring cache that has wrapped (pos >=
-# Smax), G = 1, 4, 7, 8
+               (2, 97, 32, 32, 80, None),
+               (1, 1100, 8, 8, 64, None), (1, 1100, 20, 4, 128, None),
+               (2, 50, 28, 4, 128, None), (1, 300, 40, 8, 64, 100),
+               (2, 333, 35, 7, 64, None)]
+# (B, Smax, H, KV, hd, positions): differing positions, live length 1
+# (position 0), a cache off the 256-slot chunk, a ring cache that has
+# wrapped (pos >= Smax), G = 1, 4, 7, 8; then G = 7 over an odd Smax, off
+# every tile of slots
 DECODE_SMALL = [(2, 512, 4, 4, 64, [170, 511]),
                 (3, 300, 8, 2, 32, [0, 299, 57]),
                 (2, 300, 4, 1, 16, [349, 12]),
                 (2, 2112, 32, 8, 128, [2047, 100]),
                 (1, 1000, 56, 8, 128, [999]),
-                (2, 40, 8, 1, 128, [1000, 39])]
+                (2, 40, 8, 1, 128, [1000, 39]),
+                (2, 1001, 28, 4, 64, [1000, 517])]
+# (B, Smax, H, KV, hd): live lengths on the split boundaries of the plan
+# the card gives these shapes (split_len L: live L, L + 1 and 2 L)
+DECODE_BOUNDARY = [(3, 2112, 32, 8, 128), (3, 1001, 8, 8, 64)]
 
 
 def attn_inputs(torch, shapes, dtype, seed):
@@ -385,7 +397,13 @@ def phase_attention_parity(torch, fa, dec, attention, F):
                                  f"flash {name} {(B, S, H, KV, hd, window)}")
             worst["flash", name] = max(worst.get(("flash", name), 0.0), gap)
             abs_err["flash"] = max(abs_err.get("flash", 0.0), err)
-        for B, Smax, H, KV, hd, pos in DECODE_SMALL:
+        decode_cases = list(DECODE_SMALL)
+        for B, Smax, H, KV, hd in DECODE_BOUNDARY:
+            L = dec.device_plan(dtype, B, KV, H // KV, hd, Smax, "cuda")[1]
+            decode_cases.append((B, Smax, H, KV, hd,
+                                 [min(x, Smax - 1) for x in (L - 1, L,
+                                                             2 * L - 1)]))
+        for B, Smax, H, KV, hd, pos in decode_cases:
             q, kc, vc = attn_inputs(torch, [(B, 1, H, hd), (B, Smax, KV, hd),
                                             (B, Smax, KV, hd)], dtype,
                                     Smax + H)
@@ -408,7 +426,7 @@ def phase_attention_parity(torch, fa, dec, attention, F):
     results = {}
     bf = torch.bfloat16
     rtol = ATTN_ROW_RTOL["bfloat16"]
-    # prefill: (8, 2048, 32 heads over 8 KV heads, 128), the tensor-core body
+    # prefill: (8, 2048, 32 heads over 8 KV heads, 128), the wgmma body
     B, S, H, KV, hd = SERVE_B, SERVE_P, 32, 8, 128
     q, k, v = attn_inputs(torch, [(B, S, H, hd), (B, S, KV, hd),
                                   (B, S, KV, hd)], bf, 7)
@@ -432,14 +450,16 @@ def phase_attention_parity(torch, fa, dec, attention, F):
     n_bytes = 2.0 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
     b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
     del qt, kt, vt, q, k, v
+    body = fa.body(bf, hd)
     results["flash_attention"] = dict(
         ms=ms_k, plain_ms=ms_p, library_ms=ms_l, bound_ms=b_ms,
         bound_by=b_by, max_abs_err=max(err, abs_err["flash"]),
-        shape=[B, S, H, KV, hd])
+        shape=[B, S, H, KV, hd], body=body)
     say(f"[2] flash at (B, S, H, KV, hd) = {(B, S, H, KV, hd)} bf16: worst "
         f"row gap {gap:.2e} (max abs {err:.2e}); leaving out the diagonal "
-        f"key would fail {seen:.3f} of rows; kernel {ms_k:.3f} ms (tensor "
-        f"cores), plain {ms_p:.3f} ms, SDPA {ms_l:.3f} ms, bound {b_ms:.3f} "
+        f"key would fail {seen:.3f} of rows; kernel {ms_k:.3f} ms ({body} "
+        f"body), plain {ms_p:.3f} ms, SDPA {ms_l:.3f} ms (kernel / SDPA "
+        f"{ms_k / ms_l:.2f}), bound {b_ms:.3f} "
         f"ms ({b_by}: {n_ops:.3e} flop at 989 TFLOP/s); "
         f"{n_ops / ms_k / 1e9:.1f} TFLOP/s achieved")
 
@@ -480,17 +500,21 @@ def phase_attention_parity(torch, fa, dec, attention, F):
     n_bytes = 2.0 * (2 * B * live * KV * hd + 2 * B * H * hd) + 4 * B
     n_ops = 4.0 * B * H * hd * live
     b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
+    plan = dec.device_plan(bf, B, KV, H // KV, hd, Smax, "cuda")
     results["decode_attention"] = dict(
         ms=ms_k, plain_ms=ms_p, library_ms=ms_l, bound_ms=b_ms,
         bound_by=b_by, eager_ms=eager_k,
         max_abs_err=max(err, abs_err["decode"]),
-        shape=[B, Smax, H, KV, hd, live])
+        shape=[B, Smax, H, KV, hd, live], body=dec.BODY)
     say(f"[2] decode at (B, Smax, H, KV, hd) = {(B, Smax, H, KV, hd)} bf16, "
         f"{live} live slots: worst row gap {gap:.2e} (max abs {err:.2e}); "
         f"leaving out the newest slot would fail {seen:.3f} of rows; device "
-        f"time (CUDA graph) kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, SDPA "
-        f"{ms_l:.4f} ms; per eager call kernel {eager_k:.4f} ms; bound "
-        f"{b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB at 3.35 TB/s)")
+        f"time (CUDA graph) kernel {ms_k:.4f} ms ({dec.BODY} body, {plan[0]} "
+        f"splits of {plan[1]} slots, one launch), plain {ms_p:.4f} ms, SDPA "
+        f"{ms_l:.4f} ms (kernel / SDPA {ms_k / ms_l:.2f}); per eager call "
+        f"kernel {eager_k:.4f} ms; bound {b_ms:.4f} ms ({b_by}: "
+        f"{n_bytes / 1e6:.1f} MB at 3.35 TB/s, "
+        f"{n_bytes / ms_k / 1e9:.2f} TB/s achieved)")
     return results
 
 
@@ -927,28 +951,32 @@ def main(argv=None):
         return
 
     source = "src/repro_torch/kernels/csrc/{}.cu"
+    # (name, source, TPU kernel, on a main path, body: the design that ran)
     meta = {
         "logistic": ("margin_vjp_logistic", "logistic_vjp",
-                     "src/repro/kernels/logistic_vjp.py:41", True),
+                     "src/repro/kernels/logistic_vjp.py:41", True,
+                     "two_pass"),
         "hinge": ("margin_vjp_hinge", "logistic_vjp",
-                  "src/repro/kernels/logistic_vjp.py:41", False),
+                  "src/repro/kernels/logistic_vjp.py:41", False, "two_pass"),
         "soft_threshold": ("soft_threshold", "soft_threshold",
-                           "src/repro/kernels/soft_threshold.py:20", True),
+                           "src/repro/kernels/soft_threshold.py:20", True,
+                           "one_pass"),
         "flash_attention": ("flash_attention", "flash_attention",
-                            "src/repro/kernels/flash_attention.py:28", True),
+                            "src/repro/kernels/flash_attention.py:28", True,
+                            results["flash_attention"]["body"]),
         "decode_attention": ("decode_attention", "decode_attention",
                              "src/repro/kernels/decode_attention.py:26",
-                             True),
+                             True, results["decode_attention"]["body"]),
     }
     kernels = []
-    for key, (name, src, replaces, on_path) in meta.items():
+    for key, (name, src, replaces, on_path, body) in meta.items():
         r = results[key]
         kernels.append(dict(
             name=name, route="cuda", source=source.format(src),
             replaces=replaces, launches=launches[key],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r.get("library_ms"), on_path=on_path,
+            library_ms=r.get("library_ms"), on_path=on_path, body=body,
             shape=r["shape"],
             **{k: r[k] for k in ("eager_ms", "eager_plain_ms") if k in r}))
     say(card)

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exports plain C functions and becomes its own
 shared library, compiled for ``sm_90a`` at first use into
 ``<checkout>/build/torch_kernels/`` (or ``$REPRO_TORCH_BUILD_DIR``).  The
-file name carries a hash of the source and the flags, so an edited source
-rebuilds and an unchanged one loads at once.  ``build()`` starts one nvcc
+file name carries a hash of the source, of every shared header
+``csrc/*.cuh`` and of the flags, so an edited source or header rebuilds and
+an unchanged one loads at once.  ``build()`` starts one nvcc
 per missing library, all together, and waits for them.  Nothing here runs
 at import: the CPU tests import every module on a machine without nvcc.
 """
@@ -46,9 +47,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return build_dir() / f"lib{name}-{tag[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> float:

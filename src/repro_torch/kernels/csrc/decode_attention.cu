@@ -14,32 +14,46 @@
 // for G query heads (about G flop per byte), so the least time is the live
 // slots' bytes at 3.35 TB/s.
 //
-// Design.  The TPU grid is (B, KV, slot blocks), the slot axis in order.
-// One block per (b, kv) would leave half of the 132 SMs idle at B*KV = 64,
-// so the slots are cut into 256-slot chunks, one block per (chunk, b, kv):
-//   1. decode_split: only chunks below the live length run.  Each warp
-//      takes every 8th slot, reads a K row with one 8- or 16-byte load per
-//      lane (head dims 4*lane..4*lane+3) and reduces the G dot products over
-//      the warp; the chunk's max m, P = exp(s - max(m, -1e30)) and l = sum P
-//      follow, P is rounded to V's type as the TPU kernel does before P.V,
-//      and each warp accumulates P.V over its slots in registers; the eight
-//      warps' sums add in a fixed order into (m, l, acc) for the chunk;
-//   2. decode_combine: per (b, kv), the live chunks' partials merge in
-//      chunk order with weights exp(m_j - max(M, -1e30)), and l == 0 -> 1.
-// No atomics: a run is bitwise reproducible.
+// Design: one launch, split-KV, one pass over K and V together.
+//   * A block takes one (b, kv, split).  The caller sizes the splits
+//     (kernels/decode_attention.py: split_plan) so that B * KV * splits
+//     blocks fill the SMs in one wave at the occupancy this kernel reaches
+//     (decode_attention_blocks_per_sm), with equal slot counts per split.
+//     Positions live on the device, so a split past the live length exits
+//     at once; split 0 always runs, so a sequence with no live slot still
+//     writes its (zero) output.
+//   * Each warp streams its own tiles (tile j of the split goes to warp
+//     j % warps) through its own ring of shared-memory stages, filled by
+//     16-byte cp.async (zero-filled past the live slots): no block-wide
+//     barrier inside the loop.  A tile holds U = 32 / GM slots, so its
+//     U x GM scores are 32 values: each lane computes the partial dot
+//     products of its 4 head dims for all 32, and one reduce-scatter over
+//     the warp (31 shuffles) leaves lane u * GM + g with the score of slot
+//     u for head g.  The online softmax follows per head (max and sum over
+//     the lanes of that head): m_safe = max(m, -1e30), alpha rescales the
+//     running sums, and P is rounded to the cache's type before P.V, as the
+//     TPU kernel does (l sums the unrounded P).  P and alpha go through a
+//     few words of shared memory to every lane, which accumulates P.V for
+//     its 4 head dims and all G heads in registers.
+//   * The warps' (m, l, acc) merge in warp order inside the block, and the
+//     block writes its split's partial.  The combine runs in the same
+//     launch: an integer arrival counter per (b, kv) picks the last block
+//     of the live splits, which merges the partials in split order with
+//     weights exp(m_j - max(M, -1e30)), l == 0 -> 1, writes o and resets
+//     the counter to 0, so a CUDA graph replay finds it zeroed.  No float
+//     atomics: a run is bitwise reproducible.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 256;    // cache slots per block
 constexpr int kMaxHd = 128;    // 4 head dims per lane
-constexpr int kUnroll = 4;     // slots in flight per warp
 constexpr float kNegInf = -1e30f;
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
@@ -75,242 +89,403 @@ __device__ __forceinline__ int live_slots(int p, int Smax) {
   return p >= Smax ? Smax : (p < 0 ? 0 : p + 1);
 }
 
+// GM heads (a power of two >= G) per tile of U slots; the ring's depth and
+// the block's warps: 12-32 slots in flight per warp, and in bf16 at hd 128
+// four blocks of 48 KB on an SM (GM = 4)
+template <int GM>
+struct Shape {
+  static constexpr int kU = 32 / GM;
+  static constexpr int kStages = GM <= 2 ? 2 : (GM == 4 ? 3 : 4);
+  static constexpr int kWarps = GM == 1 ? 2 : 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kScratch = 32 + 8;   // floats per warp: P, alpha
+};
+
 template <typename T, int GM>
-__global__ void __launch_bounds__(kThreads)
-decode_split(const T* __restrict__ q, const T* __restrict__ kc,
-             const T* __restrict__ vc, const int* __restrict__ positions,
-             float* __restrict__ part_m, float* __restrict__ part_l,
-             float* __restrict__ part_acc, int Smax, int KV, int G, int hd,
-             int n_split, long long q_sb, long long q_sh, long long k_sb,
-             long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-             long long v_sh, float scale) {
-  __shared__ float q_s[GM][kMaxHd];
-  __shared__ float s_s[GM][kChunk];
-  __shared__ float red[kWarps][GM][kMaxHd];
+__host__ __device__ inline int smem_bytes(int hd) {
+  using Sh = Shape<GM>;
+  return Sh::kWarps * (Sh::kStages * Sh::kU * 2 * hd * (int)sizeof(T)
+                       + Sh::kScratch * 4);
+}
+
+// one level of the warp's reduce-scatter of 32 values: a lane keeps the
+// half of its N values picked by lane bit N / 2 and adds its partner's copy
+// of that half (after the five levels lane L holds the sum of value L)
+template <int N>
+__device__ __forceinline__ void scatter_level(float (&val)[32], int lane) {
+  const bool up = lane & (N / 2);
+#pragma unroll
+  for (int j = 0; j < N / 2; ++j) {
+    const float send = up ? val[j] : val[j + N / 2];
+    const float keep = up ? val[j + N / 2] : val[j];
+    val[j] = keep + __shfl_xor_sync(kFull, send, N / 2);
+  }
+}
+
+template <typename T, int GM>
+__global__ void __launch_bounds__(Shape<GM>::kThreads)
+decode_split_kv(const T* __restrict__ q, const T* __restrict__ kc,
+                const T* __restrict__ vc, const int* __restrict__ positions,
+                T* __restrict__ o, float* __restrict__ part,
+                int* __restrict__ arrivals, int Smax, int KV, int G, int hd,
+                int n_split, int split_len, long long q_sb, long long q_sh,
+                long long k_sb, long long k_ss, long long k_sh,
+                long long v_sb, long long v_ss, long long v_sh,
+                long long o_sb, long long o_sh, float scale_log2) {
+  using Sh = Shape<GM>;
+  constexpr int U = Sh::kU, NS = Sh::kStages, W = Sh::kWarps;
+  constexpr int E = 16 / sizeof(T);   // elements per 16-byte copy
+  extern __shared__ float4 smem4[];
+  __shared__ int is_last;
 
   const int split = blockIdx.x;
   const int bkv = blockIdx.y;
   const int b = bkv / KV, kv = bkv % KV;
-  const int lo = split * kChunk;
-  const int hi = min(lo + kChunk, live_slots(positions[b], Smax));
-  if (lo >= hi) return;            // decode_combine reads live chunks only
-  const int n = hi - lo;
+  const int live = live_slots(positions[b], Smax);
+  const int lo = split * split_len;
+  const int hi = min(min(lo + split_len, Smax), live);
+  if (split > 0 && lo >= hi) return;   // not counted by the combine
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  const T* qb = q + b * q_sb + (long long)(kv * G) * q_sh;
-  for (int idx = threadIdx.x; idx < G * hd; idx += kThreads)
-    q_s[idx / hd][idx % hd] = to_float(qb[(long long)(idx / hd) * q_sh
-                                          + idx % hd]);
-  __syncthreads();
+  const int ring_elems = NS * U * 2 * hd;   // per warp
+  T* ring = reinterpret_cast<T*>(smem4) + warp * ring_elems;
+  float* scr = reinterpret_cast<float*>(reinterpret_cast<T*>(smem4)
+                                        + W * ring_elems)
+               + warp * Sh::kScratch;
 
   const int d0 = lane * 4;
   const bool dl = d0 < hd;
   float qr[GM][4];
+  const T* qb = q + b * q_sb + (long long)(kv * G) * q_sh;
 #pragma unroll
   for (int g = 0; g < GM; ++g)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      qr[g][e] = (g < G && dl) ? q_s[g][d0 + e] : 0.f;
+      qr[g][e] = (g < G && dl) ? to_float(qb[(long long)g * q_sh + d0 + e])
+                               : 0.f;
 
-  const T* kb = kc + b * k_sb + (long long)kv * k_sh + d0;
-  const T* vb = vc + b * v_sb + (long long)kv * v_sh + d0;
+  const T* kb = kc + b * k_sb + (long long)kv * k_sh;
+  const T* vb = vc + b * v_sb + (long long)kv * v_sh;
+  const int n_tiles = (hi - lo + U - 1) / U;
+  const int mine = n_tiles > warp ? (n_tiles - 1 - warp) / W + 1 : 0;
+  const int chunks = hd / E;   // 16-byte chunks per row
 
-  // scores: warp w takes slots lo + w, lo + w + 8, ...
-  for (int c = lo + warp; c < hi; c += kWarps * kUnroll) {
-    float kf[kUnroll][4];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int cu = c + u * kWarps;
-      if (cu < hi && dl) {
-        load4(kb + (long long)cu * k_ss, kf[u]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) kf[u][e] = 0.f;
-      }
+  // tile j of the split (slots lo + j U ..) into stage st of this warp's
+  // ring: U K rows, then U V rows; lane copies chunk idx % chunks of row
+  // idx / chunks for idx = lane, lane + 32, ...
+  const bool even = 32 % chunks == 0;    // then the chunk stays the lane's
+  const int ch0 = lane % chunks, u0 = lane / chunks, u_step = 32 / chunks;
+  const auto issue = [&](int j, int st) {
+    T* dk = ring + st * U * 2 * hd;
+    T* dv = dk + U * hd;
+    const int c_base = lo + j * U;
+    for (int idx = lane, u = u0, ch = ch0; idx < U * chunks;
+         idx += 32, u += u_step) {
+      if (!even) u = idx / chunks, ch = idx % chunks;
+      const int c = c_base + u;
+      const bool ok = c < hi;
+      const long long cs = ok ? c : lo;
+      hopper::cp_async16(dk + u * hd + ch * E, kb + cs * k_ss + ch * E,
+                         ok ? 16 : 0);
+      hopper::cp_async16(dv + u * hd + ch * E, vb + cs * v_ss + ch * E,
+                         ok ? 16 : 0);
     }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int cu = c + u * kWarps;
-      float part[GM];
-#pragma unroll
-      for (int g = 0; g < GM; ++g) {
-        float a = qr[g][0] * kf[u][0];
-        a = fmaf(qr[g][1], kf[u][1], a);
-        a = fmaf(qr[g][2], kf[u][2], a);
-        a = fmaf(qr[g][3], kf[u][3], a);
-        part[g] = a;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-        for (int g = 0; g < GM; ++g)
-          part[g] += __shfl_xor_sync(0xffffffffu, part[g], off);
-      if (lane == 0 && cu < hi) {
-#pragma unroll
-        for (int g = 0; g < GM; ++g)
-          if (g < G) s_s[g][cu - lo] = part[g] * scale;
-      }
-    }
-  }
-  __syncthreads();
+  };
 
-  // the chunk's softmax numerators: one warp per query head
-  const long long pidx = (long long)bkv * n_split + split;
-  for (int g = warp; g < G; g += kWarps) {
-    float mx = neg_inf();
-    for (int t = lane; t < n; t += 32) mx = fmaxf(mx, s_s[g][t]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    const float m_safe = fmaxf(mx, kNegInf);
-    float sum = 0.f;
-    for (int t = lane; t < n; t += 32) {
-      const float p = expf(s_s[g][t] - m_safe);
-      sum += p;
-      s_s[g][t] = to_float(from_float<T>(p));
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    if (lane == 0) {
-      part_m[pidx * G + g] = mx;
-      part_l[pidx * G + g] = sum;
-    }
-  }
-  __syncthreads();
-
+  // lane u * GM + g ends up with the score of slot u, head g
+  const int my_u = lane / GM, my_g = lane % GM;
+  float m = neg_inf(), l = 0.f;   // head my_g's, the same in all its lanes
   float acc[GM][4];
 #pragma unroll
   for (int g = 0; g < GM; ++g)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[g][e] = 0.f;
-  for (int c = lo + warp; c < hi; c += kWarps * kUnroll) {
-    float vf[kUnroll][4];
+
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int cu = c + u * kWarps;
-      if (cu < hi && dl) {
-        load4(vb + (long long)cu * v_ss, vf[u]);
+  for (int s = 0; s < NS - 1; ++s) {
+    if (s < mine) issue(warp + W * s, s);
+    hopper::cp_async_commit();
+  }
+  for (int i = 0; i < mine; ++i) {
+    const int ahead = i + NS - 1;
+    if (ahead < mine) issue(warp + W * ahead, ahead % NS);
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<NS - 1>();   // tile i has landed (this lane's part)
+    __syncwarp();                      // ... and every lane's
+
+    const T* sk = ring + (i % NS) * U * 2 * hd;
+    const T* sv = sk + U * hd;
+    const int c_base = lo + (warp + W * i) * U;
+
+    float val[32];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float kf[4] = {0.f, 0.f, 0.f, 0.f};
+      if (dl) load4(sk + u * hd + d0, kf);
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        float a = qr[g][0] * kf[0];
+        a = fmaf(qr[g][1], kf[1], a);
+        a = fmaf(qr[g][2], kf[2], a);
+        a = fmaf(qr[g][3], kf[3], a);
+        val[u * GM + g] = a;
+      }
+    }
+    scatter_level<32>(val, lane);
+    scatter_level<16>(val, lane);
+    scatter_level<8>(val, lane);
+    scatter_level<4>(val, lane);
+    scatter_level<2>(val, lane);
+    // scores and m in log2 units: exp2(s log2 e - m) = exp(s - m / log2 e)
+    const bool ok = c_base + my_u < hi && my_g < G;
+    const float s = ok ? val[0] * scale_log2 : neg_inf();
+
+    float mx = s;
+#pragma unroll
+    for (int off = GM; off < 32; off <<= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
+    const float m_new = fmaxf(m, mx);
+    const float m_safe = fmaxf(m_new, kNegInf);
+    const float alpha = exp2f(fmaxf(m, kNegInf) - m_safe);
+    const float p = exp2f(s - m_safe);
+    float sum = p;
+#pragma unroll
+    for (int off = GM; off < 32; off <<= 1)
+      sum += __shfl_xor_sync(kFull, sum, off);
+    l = l * alpha + sum;
+    m = m_new;
+    scr[lane] = to_float(from_float<T>(p));
+    if (lane < GM) scr[32 + lane] = alpha;
+    __syncwarp();
+
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      const float a = scr[32 + g];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[g][e] *= a;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float vf[4] = {0.f, 0.f, 0.f, 0.f};
+      if (dl) load4(sv + u * hd + d0, vf);
+      float pu[GM];
+      if (GM % 4 == 0) {
+#pragma unroll
+        for (int g = 0; g < GM; g += 4) {
+          const float4 p4 = *reinterpret_cast<const float4*>(scr + u * GM + g);
+          pu[g] = p4.x; pu[(g + 1) % GM] = p4.y;
+          pu[(g + 2) % GM] = p4.z; pu[(g + 3) % GM] = p4.w;
+        }
       } else {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) vf[u][e] = 0.f;
+        for (int g = 0; g < GM; ++g) pu[g] = scr[u * GM + g];
       }
+#pragma unroll
+      for (int g = 0; g < GM; ++g)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[g][e] = fmaf(pu[g], vf[e], acc[g][e]);
     }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int cu = c + u * kWarps;
-      if (cu < hi) {
-#pragma unroll
-        for (int g = 0; g < GM; ++g) {
-          if (g < G) {
-            const float p = s_s[g][cu - lo];
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[g][e] = fmaf(p, vf[u][e], acc[g][e]);
-          }
-        }
-      }
-    }
+    __syncwarp();   // the stage and scr are free for the next tile
+  }
+  hopper::cp_async_wait<0>();
+
+  // the warps' states, in this warp's own ring: acc[GM][hd], m[GM], l[GM]
+  __syncwarp();
+  float* wst = reinterpret_cast<float*>(ring);
+  if (lane < GM) {
+    wst[GM * hd + lane] = m;          // lane g < GM holds u = 0, head g
+    wst[GM * hd + GM + lane] = l;
   }
   if (dl) {
 #pragma unroll
     for (int g = 0; g < GM; ++g)
-      if (g < G)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) red[warp][g][d0 + e] = acc[g][e];
+      for (int e = 0; e < 4; ++e) wst[g * hd + d0 + e] = acc[g][e];
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < G * hd; idx += kThreads) {
-    const int g = idx / hd, d = idx % hd;
-    float t = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) t += red[w][g][d];
-    part_acc[(pidx * G + g) * hd + d] = t;
-  }
-}
 
-template <typename T>
-__global__ void __launch_bounds__(128)
-decode_combine(const int* __restrict__ positions,
-               const float* __restrict__ part_m,
-               const float* __restrict__ part_l,
-               const float* __restrict__ part_acc, T* __restrict__ o,
-               int Smax, int KV, int G, int hd, int n_split, long long o_sb,
-               long long o_sh) {
-  const int bkv = blockIdx.x;
-  const int b = bkv / KV, kv = bkv % KV;
-  const int n_live = (live_slots(positions[b], Smax) + kChunk - 1) / kChunk;
-  const long long base = (long long)bkv * n_split;
-  for (int idx = threadIdx.x; idx < G * hd; idx += blockDim.x) {
-    const int g = idx / hd, d = idx % hd;
+  // the block's partial for this split, warps merged in order
+  const long long n_part = (long long)gridDim.y * n_split * G;
+  float* part_acc = part;   // first: 16-byte aligned rows of hd floats
+  float* part_m = part + n_part * hd;
+  float* part_l = part_m + n_part;
+  const long long pidx = ((long long)bkv * n_split + split) * G;
+  const float* wbase = reinterpret_cast<const float*>(smem4);
+  const int wstride = ring_elems * (int)sizeof(T) / 4;   // floats per ring
+  const int hd4 = hd / 4;
+  for (int idx = threadIdx.x; idx < G * hd4; idx += Sh::kThreads) {
+    const int g = idx / hd4, d = (idx % hd4) * 4;
     float M = neg_inf();
-    for (int j = 0; j < n_live; ++j) M = fmaxf(M, part_m[(base + j) * G + g]);
+#pragma unroll
+    for (int w = 0; w < W; ++w) M = fmaxf(M, wbase[w * wstride + GM * hd + g]);
     const float M_safe = fmaxf(M, kNegInf);
-    float L = 0.f, A = 0.f;
-    for (int j = 0; j < n_live; ++j) {
-      const long long pj = (base + j) * G + g;
-      const float w = expf(fmaxf(part_m[pj], kNegInf) - M_safe);
-      L = fmaf(w, part_l[pj], L);
-      A = fmaf(w, part_acc[pj * hd + d], A);
+    float Lw = 0.f;
+    float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const float* ws = wbase + w * wstride;
+      const float wt = exp2f(fmaxf(ws[GM * hd + g], kNegInf) - M_safe);
+      const float4 a = *reinterpret_cast<const float4*>(ws + g * hd + d);
+      Lw = fmaf(wt, ws[GM * hd + GM + g], Lw);
+      A.x = fmaf(wt, a.x, A.x);
+      A.y = fmaf(wt, a.y, A.y);
+      A.z = fmaf(wt, a.z, A.z);
+      A.w = fmaf(wt, a.w, A.w);
     }
-    if (L == 0.f) L = 1.f;
-    o[b * o_sb + (long long)(kv * G + g) * o_sh + d] = from_float<T>(A / L);
+    *reinterpret_cast<float4*>(part_acc + (pidx + g) * hd + d) = A;
+    if (d == 0) {
+      part_m[pidx + g] = M;
+      part_l[pidx + g] = Lw;
+    }
+  }
+
+  // the last live split of this (b, kv) to arrive combines
+  __threadfence();
+  __syncthreads();
+  const int n_live = live == 0 ? 1 : (live + split_len - 1) / split_len;
+  if (threadIdx.x == 0) {
+    const int prev = atomicAdd(arrivals + bkv, 1);
+    is_last = prev == n_live - 1;
+    if (is_last) arrivals[bkv] = 0;
+  }
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+
+  // one thread per (head, 4 head dims): every split's loads are
+  // independent of each other, so they go out together
+  const long long first = (long long)bkv * n_split * G;
+  for (int idx = threadIdx.x; idx < G * hd4; idx += Sh::kThreads) {
+    const int g = idx / hd4, d = (idx % hd4) * 4;
+    float M = neg_inf();
+#pragma unroll 8
+    for (int j = 0; j < n_live; ++j)
+      M = fmaxf(M, __ldcg(part_m + first + (long long)j * G + g));
+    const float M_safe = fmaxf(M, kNegInf);
+    float Lw = 0.f;
+    float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+    for (int j = 0; j < n_live; ++j) {
+      const long long pj = first + (long long)j * G + g;
+      const float wt = exp2f(fmaxf(__ldcg(part_m + pj), kNegInf) - M_safe);
+      const float4 a = __ldcg(reinterpret_cast<const float4*>(part_acc
+                                                              + pj * hd + d));
+      Lw = fmaf(wt, __ldcg(part_l + pj), Lw);
+      A.x = fmaf(wt, a.x, A.x);
+      A.y = fmaf(wt, a.y, A.y);
+      A.z = fmaf(wt, a.z, A.z);
+      A.w = fmaf(wt, a.w, A.w);
+    }
+    if (Lw == 0.f) Lw = 1.f;
+    T* dst = o + b * o_sb + (long long)(kv * G + g) * o_sh + d;
+    dst[0] = from_float<T>(A.x / Lw);
+    dst[1] = from_float<T>(A.y / Lw);
+    dst[2] = from_float<T>(A.z / Lw);
+    dst[3] = from_float<T>(A.w / Lw);
   }
 }
 
 template <typename T, int GM>
+int configure() {
+  static bool done = false;
+  if (!done) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        decode_split_kv<T, GM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes<T, GM>(kMaxHd));
+    if (err != cudaSuccess) return (int)err;
+    done = true;
+  }
+  return 0;
+}
+
+template <typename T, int GM>
 int launch(const void* q, const void* k, const void* v, const int* positions,
-           void* o, float* scratch, int B, int Smax, int KV, int G, int hd,
-           const long long* st, float scale, cudaStream_t stream) {
-  const int n_split = (Smax + kChunk - 1) / kChunk;
-  const long long n_part = (long long)B * KV * n_split * G;
-  float* part_m = scratch;
-  float* part_l = scratch + n_part;
-  float* part_acc = scratch + 2 * n_part;
-  decode_split<T, GM><<<dim3(n_split, B * KV), kThreads, 0, stream>>>(
+           void* o, float* part, int* arrivals, int B, int Smax, int KV,
+           int G, int hd, int n_split, int split_len, const long long* st,
+           float scale, cudaStream_t stream) {
+  const int rc = configure<T, GM>();
+  if (rc) return rc;
+  decode_split_kv<T, GM><<<dim3(n_split, B * KV), Shape<GM>::kThreads,
+                           smem_bytes<T, GM>(hd), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), positions, part_m, part_l, part_acc, Smax, KV,
-      G, hd, n_split, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  decode_combine<T><<<B * KV, 128, 0, stream>>>(
-      positions, part_m, part_l, part_acc, static_cast<T*>(o), Smax, KV, G,
-      hd, n_split, st[8], st[9]);
+      static_cast<const T*>(v), positions, static_cast<T*>(o), part,
+      arrivals, Smax, KV, G, hd, n_split, split_len, st[0], st[1], st[2],
+      st[3], st[4], st[5], st[6], st[7], st[8], st[9],
+      scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int GM>
+int occupancy(int hd) {
+  const int rc = configure<T, GM>();
+  if (rc) return -rc;
+  int n = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, decode_split_kv<T, GM>, Shape<GM>::kThreads, smem_bytes<T, GM>(hd));
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+template <typename T>
+int blocks_per_sm(int G, int hd) {
+  if (G <= 1) return occupancy<T, 1>(hd);
+  if (G <= 2) return occupancy<T, 2>(hd);
+  if (G <= 4) return occupancy<T, 4>(hd);
+  return occupancy<T, 8>(hd);
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const int* pos,
-             void* o, float* scratch, int B, int Smax, int KV, int G, int hd,
-             const long long* st, float scale, cudaStream_t stream) {
-  if (G <= 1) return launch<T, 1>(q, k, v, pos, o, scratch, B, Smax, KV, G, hd, st, scale, stream);
-  if (G <= 2) return launch<T, 2>(q, k, v, pos, o, scratch, B, Smax, KV, G, hd, st, scale, stream);
-  if (G <= 4) return launch<T, 4>(q, k, v, pos, o, scratch, B, Smax, KV, G, hd, st, scale, stream);
-  return launch<T, 8>(q, k, v, pos, o, scratch, B, Smax, KV, G, hd, st, scale, stream);
+             void* o, float* part, int* arr, int B, int Smax, int KV, int G,
+             int hd, int ns, int sl, const long long* st, float scale,
+             cudaStream_t stream) {
+  if (G <= 1)
+    return launch<T, 1>(q, k, v, pos, o, part, arr, B, Smax, KV, G, hd, ns,
+                        sl, st, scale, stream);
+  if (G <= 2)
+    return launch<T, 2>(q, k, v, pos, o, part, arr, B, Smax, KV, G, hd, ns,
+                        sl, st, scale, stream);
+  if (G <= 4)
+    return launch<T, 4>(q, k, v, pos, o, part, arr, B, Smax, KV, G, hd, ns,
+                        sl, st, scale, stream);
+  return launch<T, 8>(q, k, v, pos, o, part, arr, B, Smax, KV, G, hd, ns, sl,
+                      st, scale, stream);
 }
 
 }  // namespace
 
-// Scratch floats the caller allocates: B*KV*ceil(Smax/256)*G*(hd + 2).
-extern "C" long long decode_attention_scratch(int B, int Smax, int KV, int G,
-                                              int hd) {
-  return (long long)B * KV * ((Smax + kChunk - 1) / kChunk) * G * (hd + 2);
+// Blocks of the kernel one SM holds at (type, G, hd); negative: minus the
+// CUDA error.  The caller sizes the splits from it.
+extern "C" int decode_attention_blocks_per_sm(int is_bf16, int G, int hd) {
+  if (G < 1 || G > 8 || hd < 1 || hd > kMaxHd) return -(int)cudaErrorInvalidValue;
+  return is_bf16 ? blocks_per_sm<__nv_bfloat16>(G, hd)
+                 : blocks_per_sm<float>(G, hd);
 }
 
+// part: B*KV*n_split*G*(hd + 2) floats of scratch, 16-byte aligned (the
+// partial outputs, then their m, then their l); arrivals: B*KV int32,
+// zero before the first call, left zero by every call.  Splits are
+// [j * split_len, min((j + 1) * split_len, Smax)), j < n_split.
 // strides: 10 element strides: q (batch, head), k (batch, slot, head),
-// v (batch, slot, head), o (batch, head); the head-dim stride is 1.
-// G <= 8 and hd <= 128.  Returns the CUDA error code.
+// v (batch, slot, head), o (batch, head); the head-dim stride is 1, the
+// others and the bases 16-byte aligned.  G <= 8 and hd <= 128, hd * the
+// element size a multiple of 16.  Returns the CUDA error code.
 extern "C" int decode_attention_fwd(int is_bf16, const void* q, const void* k,
                                     const void* v, const int* positions,
-                                    void* o, float* scratch, int B, int Smax,
-                                    int KV, int G, int hd,
+                                    void* o, float* part, int* arrivals,
+                                    int B, int Smax, int KV, int G, int hd,
+                                    int n_split, int split_len,
                                     const long long* strides, float scale,
                                     void* stream) {
   if (B * KV == 0 || Smax == 0) return 0;
-  if (G > 8 || hd > kMaxHd) return (int)cudaErrorInvalidValue;
+  if (G < 1 || G > 8 || hd > kMaxHd || n_split < 1 ||
+      (long long)n_split * split_len < Smax)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, positions, o, scratch, B,
-                                           Smax, KV, G, hd, strides, scale, st)
-                 : dispatch<float>(q, k, v, positions, o, scratch, B, Smax,
-                                   KV, G, hd, strides, scale, st);
+  return is_bf16
+             ? dispatch<__nv_bfloat16>(q, k, v, positions, o, part, arrivals,
+                                       B, Smax, KV, G, hd, n_split, split_len,
+                                       strides, scale, st)
+             : dispatch<float>(q, k, v, positions, o, part, arrivals, B, Smax,
+                               KV, G, hd, n_split, split_len, strides, scale,
+                               st);
 }

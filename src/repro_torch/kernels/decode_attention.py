@@ -3,25 +3,36 @@
 The CUDA source, ``csrc/decode_attention.cu``, replaces the TPU kernel
 ``repro/kernels/decode_attention.py:_kernel``.  It reads the KV cache in the
 model's layout (B, Smax, KV, hd) — no per-call transpose of the cache — and
-writes o in (B, 1, H, hd).  One wrapper call is one launch of the kernel
-pair (the chunked pass and its fixed-order combine) and counts once.  The
-wrapper checks its operands, allocates the output and the chunk partials
-with ``torch.empty``, launches on PyTorch's current stream and raises if
-the launch failed.  Its plain version is ``models/attention.decode_attention``.
+writes o in (B, 1, H, hd).  One wrapper call is one launch of one kernel:
+split-KV blocks that read K and V in one pass, the last live split of each
+(b, kv) merging the partials in split order (an integer arrival counter,
+reset by the kernel itself, so a CUDA graph replays it).  ``split_plan``
+sizes the splits on the host from the cache length, the SM count and the
+kernel's occupancy.  The wrapper checks its operands, allocates the output
+and the split partials with ``torch.empty``, launches on PyTorch's current
+stream and raises if the launch failed.  Its plain version is
+``models/attention.decode_attention``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 
 LAUNCHES = {"decode_attention": 0}
+BODY = "split_kv"
 MAX_HEAD_DIM = 128
 MAX_GROUP = 8
+MAX_GRID_Y = 65535
+# fewest slots a split takes: below this a block's warps run out of tiles
+MIN_SPLIT = 32
 _TYPES = {torch.float32: 0, torch.bfloat16: 1}
+# per device, the (b, kv) arrival counters; zero between calls
+_ARRIVALS: Dict[torch.device, torch.Tensor] = {}
 
 
 def reset_launches() -> None:
@@ -32,14 +43,63 @@ def reset_launches() -> None:
 def _lib():
     lib = build.load("decode_attention")
     fn = lib.decode_attention_fwd
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
-                   + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
+                   + [ctypes.c_int] * 7
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    lib.decode_attention_scratch.argtypes = [ctypes.c_int] * 5
-    lib.decode_attention_scratch.restype = ctypes.c_longlong
+    lib.decode_attention_blocks_per_sm.argtypes = [ctypes.c_int] * 3
+    lib.decode_attention_blocks_per_sm.restype = ctypes.c_int
     return lib
+
+
+def split_plan(n_bkv: int, Smax: int, n_sm: int,
+               per_sm: int) -> Tuple[int, int]:
+    """(n_split, split_len) for ``n_bkv`` = B * KV sequences-and-heads over
+    an ``Smax``-slot cache, on ``n_sm`` SMs that each hold ``per_sm``
+    blocks: as many splits as fill one wave of resident blocks, at least
+    ``MIN_SPLIT`` slots each, all of one length (the last may be shorter),
+    covering [0, Smax) exactly once."""
+    if n_bkv < 1 or Smax < 1 or n_sm < 1 or per_sm < 1:
+        raise ValueError(f"split_plan needs positive sizes, got n_bkv="
+                         f"{n_bkv}, Smax={Smax}, n_sm={n_sm}, per_sm="
+                         f"{per_sm}")
+    n_split = max(1, min(n_sm * per_sm // n_bkv, Smax // MIN_SPLIT))
+    split_len = -(-Smax // n_split)
+    return -(-Smax // split_len), split_len
+
+
+def device_plan(dtype, B: int, KV: int, G: int, hd: int, Smax: int,
+                device) -> Tuple[int, int]:
+    """``split_plan`` for these shapes on the card ``device``."""
+    dev = torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return _plan(index, _TYPES[dtype], B * KV, G, hd, Smax)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(index: int, is_bf16: int, n_bkv: int, G: int, hd: int,
+          Smax: int) -> Tuple[int, int]:
+    # cached: the host's cost per decode step is part of its latency
+    with torch.cuda.device(index):
+        per_sm = _lib().decode_attention_blocks_per_sm(is_bf16, G, hd)
+    if per_sm <= 0:
+        raise RuntimeError(f"decode_attention_blocks_per_sm failed with CUDA "
+                           f"error {-per_sm}")
+    n_sm = torch.cuda.get_device_properties(index).multi_processor_count
+    return split_plan(n_bkv, Smax, n_sm, per_sm)
+
+
+def _arrivals(dev, n: int) -> torch.Tensor:
+    buf = _ARRIVALS.get(dev)
+    if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("decode_attention_cuda: call it once outside "
+                               "CUDA graph capture first, to allocate its "
+                               "arrival counters")
+        buf = torch.zeros(max(n, 64), dtype=torch.int32, device=dev)
+        _ARRIVALS[dev] = buf
+    return buf
 
 
 def decode_attention_cuda(q, k_cache, v_cache, positions) -> torch.Tensor:
@@ -53,17 +113,17 @@ def decode_attention_cuda(q, k_cache, v_cache, positions) -> torch.Tensor:
     if q.dtype not in _TYPES:
         raise ValueError(f"decode attention takes float32 or bfloat16, got "
                          f"{q.dtype}")
-    vec, align = 4, 4 * q.element_size()     # one 4-element load a lane
+    vec = 16 // q.element_size()          # 16-byte copies
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if t.device != dev or t.dtype != q.dtype or t.dim() != 4:
             raise ValueError(f"{name} must be a 4-d {q.dtype} tensor on "
                              f"{dev}, got {tuple(t.shape)} {t.dtype} on "
                              f"{t.device}")
         if t.stride(3) != 1 or any(s % vec for s in t.stride()[:3]) \
-                or t.data_ptr() % align:
+                or t.data_ptr() % 16:
             raise ValueError(f"{name}: the head dim must be contiguous and "
                              f"the other strides multiples of {vec}, from a "
-                             f"{align}-byte aligned base; got {t.stride()}")
+                             f"16-byte aligned base; got {t.stride()}")
     B, one, H, hd = q.shape
     _, Smax, KV, _ = k_cache.shape
     if one != 1 or tuple(k_cache.shape) != (B, Smax, KV, hd) \
@@ -72,19 +132,22 @@ def decode_attention_cuda(q, k_cache, v_cache, positions) -> torch.Tensor:
                          f"hd); got {tuple(q.shape)}, {tuple(k_cache.shape)}"
                          f", {tuple(v_cache.shape)}")
     if KV == 0 or H % KV or H // KV > MAX_GROUP or hd > MAX_HEAD_DIM \
-            or hd % 4 or Smax == 0:
+            or hd % vec or Smax == 0 or B * KV > MAX_GRID_Y:
         raise ValueError(f"need H = G * KV with G <= {MAX_GROUP}, hd <= "
-                         f"{MAX_HEAD_DIM} a multiple of 4 and Smax > 0; got "
-                         f"H={H}, KV={KV}, hd={hd}, Smax={Smax}")
+                         f"{MAX_HEAD_DIM} a multiple of {vec}, Smax > 0 and "
+                         f"B * KV <= {MAX_GRID_Y}; got B={B}, H={H}, KV={KV},"
+                         f" hd={hd}, Smax={Smax}")
     if positions.device != dev or positions.dtype != torch.int32 \
             or tuple(positions.shape) != (B,) or not positions.is_contiguous():
         raise ValueError(f"positions must be a contiguous ({B},) int32 tensor "
                          f"on {dev}")
     G = H // KV
     lib = _lib()
+    n_split, split_len = device_plan(q.dtype, B, KV, G, hd, Smax, dev)
     o = torch.empty((B, 1, H, hd), dtype=q.dtype, device=dev)
-    scratch = torch.empty((lib.decode_attention_scratch(B, Smax, KV, G, hd),),
-                          dtype=torch.float32, device=dev)
+    part = torch.empty((B * KV * n_split * G * (hd + 2),),
+                       dtype=torch.float32, device=dev)
+    arrivals = _arrivals(dev, B * KV)
     strides = (ctypes.c_longlong * 10)(
         q.stride(0), q.stride(2), *k_cache.stride()[:3],
         *v_cache.stride()[:3], o.stride(0), o.stride(2))
@@ -92,7 +155,8 @@ def decode_attention_cuda(q, k_cache, v_cache, positions) -> torch.Tensor:
         rc = lib.decode_attention_fwd(
             _TYPES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), positions.data_ptr(), o.data_ptr(),
-            scratch.data_ptr(), B, Smax, KV, G, hd, strides, hd ** -0.5,
+            part.data_ptr(), arrivals.data_ptr(), B, Smax, KV, G, hd,
+            n_split, split_len, strides, hd ** -0.5,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention_fwd launch failed with CUDA "

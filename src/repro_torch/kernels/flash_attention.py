@@ -7,6 +7,12 @@ as they are — q (B, S, H, hd), k/v (B, Skv, KV, hd) — and writes o in
 checks its operands, allocates the output with ``torch.empty``, launches on
 PyTorch's current stream, raises if the launch failed, and counts the
 launch.  Its plain version is ``models/attention.block_attention``.
+
+Two bodies (``body``): bf16 at head dim 64 or 128, the serving path, runs
+the warp-specialised wgmma body, whose K and V tiles come in by TMA through
+tensor maps encoded at each call over k and v as they lie (16-byte aligned
+bases and strides, which ``_check_rows`` enforces); float32 and other head
+dims run the scalar float32 body.
 """
 from __future__ import annotations
 
@@ -25,6 +31,13 @@ _TYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def reset_launches() -> None:
     LAUNCHES["flash_attention"] = 0
+
+
+def body(dtype, hd: int) -> str:
+    """The kernel body a call with this type and head dim runs (the CUDA
+    source dispatches the same way)."""
+    return "wgmma" if dtype == torch.bfloat16 and hd in (64, 128) \
+        else "scalar"
 
 
 @functools.lru_cache(maxsize=None)
@@ -86,7 +99,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
                    hd ** -0.5, int(causal), int(window or 0),
                    torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed with CUDA "
-                           f"error {rc}")
+        raise RuntimeError(f"flash_attention_fwd launch failed with error "
+                           f"{rc} (CUDA's; 10000 + the driver's when a "
+                           f"tensor map could not be encoded)")
     LAUNCHES["flash_attention"] += 1
     return o

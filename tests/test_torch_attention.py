@@ -159,9 +159,112 @@ def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
     t_ops.decode_attention(q[:, :1], kv, kv, torch.tensor([5]))
     assert t_fa.LAUNCHES == {"flash_attention": 0}
     assert t_dec.LAUNCHES == {"decode_attention": 0}
+    assert t_dec._ARRIVALS == {}        # no arrival counters allocated
     # the kernels' wrappers take CUDA tensors only, and never fall back
     with pytest.raises(ValueError, match="CUDA"):
         t_fa.flash_attention_cuda(q, kv, kv)
     with pytest.raises(ValueError, match="CUDA"):
         t_dec.decode_attention_cuda(q[:, :1], kv, kv,
                                     torch.tensor([5], dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# host-side logic of the kernels, checked without a card
+# ---------------------------------------------------------------------------
+
+def _chip_smoke():
+    """chip_smoke.py's shape tables (the module imports the standard
+    library only until main() runs)."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_library_path_changes_when_a_shared_header_changes(tmp_path,
+                                                           monkeypatch):
+    from repro_torch.kernels import build
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include "h.cuh"\n')
+    (csrc / "h.cuh").write_text("// v1\n")
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "out"))
+    first = build.library_path("k")
+    assert build.library_path("k") == first           # stable
+    assert first.parent == tmp_path / "out"
+    (csrc / "h.cuh").write_text("// v2\n")
+    second = build.library_path("k")
+    assert second != first                             # header edited
+    (csrc / "other.cuh").write_text("// new\n")
+    third = build.library_path("k")
+    assert third not in (first, second)                # header added
+    (csrc / "k.cu").write_text('#include "h.cuh"\n// edited\n')
+    assert build.library_path("k") not in (first, second, third)
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-lineinfo",))
+    (csrc / "k.cu").write_text('#include "h.cuh"\n')
+    (csrc / "other.cuh").unlink()
+    assert build.library_path("k") != second           # flags hashed too
+
+
+def _plan_cases():
+    smoke = _chip_smoke()
+    shapes = [(smoke.SERVE_B, smoke.SERVE_P + smoke.SERVE_GEN, 8)]
+    shapes += [(B, Smax, KV) for B, Smax, _, KV, _, _ in smoke.DECODE_SMALL]
+    shapes += [(B, Smax, KV) for B, Smax, _, KV, _ in smoke.DECODE_BOUNDARY]
+    return shapes
+
+
+@pytest.mark.parametrize("B,Smax,KV", _plan_cases())
+def test_decode_split_plan_covers_the_cache_once_within_the_grid(B, Smax,
+                                                                 KV):
+    for n_sm in (1, 114, 132):
+        for per_sm in (1, 2, 3, 4, 6, 8):
+            n_split, split_len = t_dec.split_plan(B * KV, Smax, n_sm, per_sm)
+            splits = [(j * split_len, min((j + 1) * split_len, Smax))
+                      for j in range(n_split)]
+            assert all(lo < hi for lo, hi in splits)       # none empty
+            assert splits[0][0] == 0 and splits[-1][1] == Smax
+            assert all(a[1] == b[0] for a, b in zip(splits, splits[1:]))
+            # equal lengths but the last, which is shorter by less than one
+            assert all(hi - lo == split_len for lo, hi in splits[:-1])
+            assert 1 <= n_split < 2 ** 31 and B * KV <= t_dec.MAX_GRID_Y
+            assert split_len >= min(Smax, t_dec.MIN_SPLIT) or n_split == 1
+            if B * KV <= n_sm * per_sm:                     # one wave
+                assert n_split * B * KV <= n_sm * per_sm
+
+
+def test_decode_split_plan_at_the_serving_shape():
+    # B * KV = 64 over 2 112 slots on 132 SMs holding 4 blocks each: 8
+    # splits of 264 slots, 512 blocks in one wave of 528
+    assert t_dec.split_plan(64, 2112, 132, 4) == (8, 264)
+    assert t_dec.split_plan(64, 2112, 132, 3) == (6, 352)
+    with pytest.raises(ValueError):
+        t_dec.split_plan(0, 2112, 132, 4)
+
+
+def test_flash_body_by_type_and_head_dim():
+    assert t_fa.body(torch.bfloat16, 128) == "wgmma"
+    assert t_fa.body(torch.bfloat16, 64) == "wgmma"
+    assert t_fa.body(torch.bfloat16, 80) == "scalar"
+    assert t_fa.body(torch.float32, 128) == "scalar"
+    smoke = _chip_smoke()
+    # the chip smoke's small bf16 shapes reach both bodies, the wgmma one at
+    # hd 64 and 128, G = 5 and 7, lengths off and under the 128-key tile, a
+    # window under a tile and a K/V ring that wraps at least twice
+    shapes = smoke.FLASH_SMALL
+    bodies = {t_fa.body(torch.bfloat16, hd) for *_, hd, _ in shapes}
+    assert bodies == {"wgmma", "scalar"}
+    wg = [(B, S, H, KV, hd, w) for B, S, H, KV, hd, w in shapes
+          if t_fa.body(torch.bfloat16, hd) == "wgmma"]
+    assert {hd for *_, hd, _ in wg} == {64, 128}
+    assert {5, 7} <= {H // KV for _, _, H, KV, _, _ in wg}
+    assert any(S % 128 for _, S, *_ in wg) and any(S < 128 for _, S, *_ in wg)
+    assert any(w is not None and w < 128 for *_, w in wg)
+    stages = {64: 4, 128: 3}
+    assert all(any(-(-S // 128) > 2 * stages[h] for _, S, _, _, hd, _ in wg
+                   if hd == h) for h in (64, 128))
+
