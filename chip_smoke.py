@@ -3,15 +3,22 @@
 
     python3 chip_smoke.py                 # every phase, as a check runs it
     python3 chip_smoke.py --phases 1,2,5  # the kernels and serving only
+    python3 chip_smoke.py --src OTHER/src # time another checkout's ADMM
+                                          # kernels, nothing else
 
 Phases, one line or a few each (any failure exits non-zero; nothing is
 caught):
   1. environment: the card (nvidia-smi name and power limit), torch and
-     CUDA versions, the kernels' build time;
+     CUDA versions, the kernels' build time and ptxas's registers and
+     spills (the margin kernel must not spill);
   2. kernel parity: each CUDA kernel against its plain PyTorch version on
-     the card, on small ragged shapes and at the main paths' shapes, with
-     the kernel's, the plain version's, the bound's and (for attention)
-     scaled_dot_product_attention's times;
+     the card, on small ragged shapes (for the margin kernel: ranges that
+     cross lanes, ragged rows and columns, a 4-block cluster) and at the
+     main paths' shapes, each margin and z-update call bitwise equal on a
+     second call, with the kernel's, the plain version's, the bound's
+     and a yardstick's times (scaled_dot_product_attention for attention,
+     one cuBLAS read of A for the margin kernel, an empty kernel for the
+     z-update);
   3. small instances on the card: the engine suite's logreg instance
      against the reference's trace (ENGINE_ANCHOR), and the registry's
      default instance in float64 against the same run on the CPU and in
@@ -19,6 +26,8 @@ caught):
   4. the logreg main path at the paper's size: N=600 000, d=10 000, W=64,
      the batched engine with kernel="cuda", through ``api.run``, with the
      margin and z-update kernels' launch counts read around that run;
+     then the same rounds with kernel="torch" (the plain sparse path) as
+     the witness, and a control with 1% of each lane's rows masked out;
   5. serving: reduced granite_8b in float32 (2 layers, full and windowed
      attention) on the card against the same run on the CPU, then
      granite_8b at full width and depth in bfloat16 through
@@ -78,6 +87,13 @@ PAPER_KW = dict(n_samples=600_000, n_features=10_000, density=0.001,
                                      eps_fval=1e-12, max_iters=500))
 PAPER_W = 64
 PAPER_ROUNDS = 2
+# the kernel path against the plain sparse path (kernel="torch") on the
+# paper instance, per round: relative gap of r_norm, s_norm and rho, and
+# the |inner_mean| gap.  Both run float32 with other summation orders;
+# the limits lie between the readings of sound runs and of a control
+# (the last 1% of each lane's rows masked out) recorded in PERF.md
+WITNESS_RTOL = 1e-3
+WITNESS_INNER = 2.0
 
 # the bound: H100 SXM peak memory rate, float32 rate and dense bf16
 # tensor-core rate (NVIDIA's data sheet)
@@ -126,6 +142,50 @@ def nvidia_smi(query: str) -> str:
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+
+
+def ptxas_report(log: str):
+    """(kernel, registers, spill line) for each entry function in nvcc's
+    ``-Xptxas -v`` output."""
+    out, fn, spill = [], None, ""
+    for line in log.splitlines():
+        line = line.strip()
+        if line.startswith("ptxas info    : Function properties for "):
+            fn = line.rsplit(" ", 1)[-1]
+        elif "spill stores" in line:
+            spill = line
+        elif line.startswith("ptxas info    : Used ") and fn:
+            out.append((fn, line.split()[4], spill))
+            fn, spill = None, ""
+    try:                                   # readable template names
+        names = subprocess.run(["c++filt"], input="\n".join(
+            f for f, _, _ in out), capture_output=True, text=True,
+            check=True).stdout.split("\n")
+        out = [(n.replace("(anonymous namespace)::", "").split("(")[0]
+                .removeprefix("void "), r, s)
+               for n, (_, r, s) in zip(names, out)]
+    except (OSError, subprocess.CalledProcessError):
+        pass
+    return out
+
+
+def check_margin_spills(log: str) -> None:
+    """Fail unless nvcc's output for logistic_vjp reports its
+    ``margin_one_pass`` bodies and none of them spills.  The body keeps x
+    and the gradient partial in registers: a spill would put its per-row
+    work through local memory.  An output without the report (a library
+    built without its .log beside it) fails too, since nothing was
+    checked."""
+    bodies = [(fn, spill) for fn, _, spill in ptxas_report(log)
+              if "margin_one_pass" in fn]
+    if not bodies:
+        fail("nvcc's output for logistic_vjp holds no ptxas report of "
+             "margin_one_pass, so its spills cannot be checked (remove "
+             "build/torch_kernels to rebuild the library with its log)")
+    spills = [fn for fn, spill in bodies
+              if "0 bytes spill stores, 0 bytes spill loads" not in spill]
+    if spills:
+        fail(f"logistic_vjp spills in {spills}")
 
 
 def median_ms(torch, fn, reps: int, warmup: int = 1) -> float:
@@ -203,16 +263,22 @@ def margin_inputs(torch, W, N, D, zero_lanes=(), seed=0):
 
 def check_margin(torch, lv, ref, loss, A, b, mask, x, zero_lanes=(),
                  gamma=0.5):
+    """The kernel against its plain version; all-zero-mask lanes exactly
+    0, and a second call bitwise equal to the first."""
     f_k, g_k = lv.margin_vjp_cuda(A, b, mask, x, loss=loss, gamma=gamma)
+    f_2, g_2 = lv.margin_vjp_cuda(A, b, mask, x, loss=loss, gamma=gamma)
     if loss == "logistic":
         f_p, g_p = ref.logistic_vjp_ref(A, b, mask, x)
     else:
         f_p, g_p = ref.svm_vjp_ref(A, b, mask, x, gamma)
     torch.cuda.synchronize()
+    shape = tuple(A.shape)
+    if not (torch.equal(f_k, f_2) and torch.equal(g_k, g_2)):
+        fail(f"{loss} {shape}: a second call is not bitwise equal")
     for lane in zero_lanes:
         if float(f_k[lane]) != 0.0 or bool(torch.any(g_k[lane] != 0)):
-            fail(f"{loss}: all-zero-mask lane {lane} is not exactly 0")
-    shape = tuple(A.shape)
+            fail(f"{loss} {shape}: all-zero-mask lane {lane} is not "
+                 f"exactly 0")
     return max(max_err(torch, f_k, f_p, f"{loss} loss {shape}"),
                max_err(torch, g_k, g_p, f"{loss} grad {shape}"))
 
@@ -223,9 +289,13 @@ def check_z_update(torch, st, ref, D, seed=0):
     z_old = torch.randn((D,), generator=g, device="cuda")
     thr = 0.37
     z_k, s_k, n_k = st.soft_threshold_cuda(omega, z_old, thr)
+    z_2, s_2, n_2 = st.soft_threshold_cuda(omega, z_old, thr)
     z_p, s_p, n_p = ref.soft_threshold_ref(
         omega, z_old, torch.tensor(thr, dtype=torch.float32, device="cuda"))
     torch.cuda.synchronize()
+    if not (torch.equal(z_k, z_2) and torch.equal(s_k, s_2)
+            and torch.equal(n_k, n_2)):
+        fail(f"z-update D={D}: a second call is not bitwise equal")
     if int(n_k) != int(n_p):
         fail(f"z-update D={D}: nnz {int(n_k)} != plain {int(n_p)}")
     return max(max_err(torch, z_k, z_p, f"z-update z D={D}"),
@@ -233,30 +303,50 @@ def check_z_update(torch, st, ref, D, seed=0):
                                                                  z_old, thr)
 
 
+# (W, N, D), all-zero-mask lanes: ragged D (bulk copies need D % 4 == 0,
+# so 70, 129 and 5 take the cp.async loader), ranges that cross lane
+# boundaries mid-range (1024 x 8 rows, 3 x 111 rows), one lane of 2 048
+# rows, a row count off the split at the main width, and rows too wide
+# for one block: D = 40 000 (bulk copies) and 20 001 (cp.async) each take
+# a cluster of 4 blocks per range
+MARGIN_SMALL = [((3, 111, 70), (0,)), ((2, 300, 129), (1,)),
+                ((1024, 8, 128), (5, 700)), ((8, 256, 128), ()),
+                ((1, 2048, 128), ()), ((1, 1, 5), ()),
+                ((5, 1001, 10_000), (2,)), ((2, 300, 40_000), (1,)),
+                ((2, 50, 20_001), (0,))]
+Z_SIZES = (1, 70, 8320, 10_000, 1_000_003)
+
+
 def phase_parity(torch, lv, st, ref):
     results = {}
     worst = {"logistic": 0.0, "hinge": 0.0, "soft_threshold": 0.0}
-    small = [((3, 111, 70), (0,)), ((2, 300, 129), (1,)),
-             ((1024, 8, 128), (5, 700)), ((8, 256, 128), ()),
-             ((1, 1, 5), ())]
-    for (W, N, D), zero in small:
+    for (W, N, D), zero in MARGIN_SMALL:
         A, b, mask, x = margin_inputs(torch, W, N, D, zero, seed=W + N + D)
         for loss in ("logistic", "hinge"):
             worst[loss] = max(worst[loss], check_margin(
                 torch, lv, ref, loss, A, b, mask, x, zero))
-    for D in (1, 70, 8320, 1_000_003):
+        p = lv.device_plan(W, N, D, "cuda", lv.bulk_loader(A, x))
+        say(f"[2] margin {(W, N, D)}: {p.groups} ranges x {p.cluster} "
+            f"block(s) of {p.threads} threads x {p.chunks} chunks, "
+            f"{p.stages} stages of {p.rows_per_stage} rows, "
+            f"{'bulk copy' if p.bulk else 'cp.async'} loader")
+    for D in Z_SIZES:
         err, _ = check_z_update(torch, st, ref, D, seed=D)
         worst["soft_threshold"] = max(worst["soft_threshold"], err)
-    say(f"[2] small ragged shapes held: logistic {worst['logistic']:.2e}, "
-        f"hinge {worst['hinge']:.2e}, z-update "
-        f"{worst['soft_threshold']:.2e} (tolerance {PARITY_RTOL:g} x "
-        f"max(1, |plain|))")
+    say(f"[2] small shapes held, each second call bitwise equal, zero-mask "
+        f"lanes exactly 0: logistic {worst['logistic']:.2e}, hinge "
+        f"{worst['hinge']:.2e}, z-update {worst['soft_threshold']:.2e} "
+        f"(tolerance {PARITY_RTOL:g} x max(1, |plain|); nnz exact)")
 
     # the main path's shapes: W=64 lanes of 9 375 rows, d = 10 000
     W, N, D = PAPER_W, -(-PAPER_KW["n_samples"] // PAPER_W), \
         PAPER_KW["n_features"]
     A, b, mask, x = margin_inputs(torch, W, N, D, (3,), seed=1)
     n_bytes = 4.0 * (W * N * D + 2 * W * N + 2 * W * D + W)
+    # one cuBLAS read of A (A x as a batched product): a practical read
+    # rate, not the same function
+    read_ms = median_ms(torch, lambda: torch.bmm(A, x[:, :, None]), 5)
+    p = lv.device_plan(W, N, D, "cuda", lv.bulk_loader(A, x))
     for loss in ("logistic", "hinge"):
         err = check_margin(torch, lv, ref, loss, A, b, mask, x, (3,))
         worst[loss] = max(worst[loss], err)
@@ -270,36 +360,52 @@ def phase_parity(torch, lv, st, ref):
         b_ms, b_by = bound_ms(n_bytes, 4.0 * W * N * D)
         results[loss] = dict(ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
                              bound_by=b_by, max_abs_err=worst[loss],
-                             shape=[W, N, D])
+                             read_ms=read_ms, shape=[W, N, D])
         say(f"[2] {loss} at (W, N, D) = ({W}, {N}, {D}): max err {err:.2e}"
-            f", kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms, bound "
-            f"{b_ms:.3f} ms ({b_by}: {n_bytes / 1e9:.2f} GB at 3.35 TB/s)")
+            f", kernel {ms_k:.3f} ms ({lv.BODY} body: {p.groups} ranges of "
+            f"{W * N // p.groups}-{-(-W * N // p.groups)} rows, "
+            f"{p.threads} threads x {p.chunks} chunks, {p.stages} stages), "
+            f"{n_bytes / ms_k / 1e9:.3f} TB/s, {b_ms / ms_k:.3f} of the "
+            f"bound; plain {ms_p:.3f} ms; bound {b_ms:.3f} ms ({b_by}: "
+            f"{n_bytes / 1e9:.2f} GB at 3.35 TB/s); one cuBLAS read of A "
+            f"(bmm) {read_ms:.3f} ms")
     del A, b, mask, x
     torch.cuda.empty_cache()
 
-    err, (omega, z_old, thr) = check_z_update(torch, st, ref, D, seed=2)
-    worst["soft_threshold"] = max(worst["soft_threshold"], err)
-    thr_t = torch.tensor(thr, dtype=torch.float32, device="cuda")
+    # the z-update: device times of calls captured in one CUDA graph, at
+    # the main path's D and at 10^6, beside an empty kernel's (the floor)
+    floor_ms = graph_ms(torch, st.empty_launch, reps=200)
+    thr_t = torch.tensor(0.37, dtype=torch.float32, device="cuda")
+    z_times = {}
+    for Dz, seed in ((D, 2), (1_000_003, 3)):
+        err, (omega, z_old, thr) = check_z_update(torch, st, ref, Dz, seed)
+        worst["soft_threshold"] = max(worst["soft_threshold"], err)
 
-    def kern():
-        st.soft_threshold_cuda(omega, z_old, thr)
+        def kern():
+            st.soft_threshold_cuda(omega, z_old, thr)
 
-    def plain():
-        ref.soft_threshold_ref(omega, z_old, thr_t)
-    eager_k = median_ms(torch, kern, 200, warmup=5)
-    eager_p = median_ms(torch, plain, 200, warmup=5)
-    ms_k = graph_ms(torch, kern, reps=200)
-    ms_p = graph_ms(torch, plain, reps=200)
-    b_ms, b_by = bound_ms(4.0 * 3 * D + 4 + 4 + 8, 6.0 * D)
-    results["soft_threshold"] = dict(ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
-                                     bound_by=b_by,
-                                     max_abs_err=worst["soft_threshold"],
-                                     shape=[D], eager_ms=eager_k,
-                                     eager_plain_ms=eager_p)
-    say(f"[2] z-update at D = {D}: max err {err:.2e}; device time (CUDA "
-        f"graph) kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms; per eager call "
-        f"kernel {eager_k:.4f} ms, plain {eager_p:.4f} ms; bound "
-        f"{b_ms:.6f} ms ({b_by})")
+        def plain():
+            ref.soft_threshold_ref(omega, z_old, thr_t)
+        eager_k = median_ms(torch, kern, 200, warmup=5)
+        eager_p = median_ms(torch, plain, 200, warmup=5)
+        ms_k = graph_ms(torch, kern, reps=200)
+        ms_p = graph_ms(torch, plain, reps=200)
+        z_bytes = 4.0 * 3 * Dz + 4 + 4 + 8
+        b_ms, b_by = bound_ms(z_bytes, 6.0 * Dz)
+        z_times[Dz] = dict(ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
+                           bound_by=b_by, eager_ms=eager_k,
+                           eager_plain_ms=eager_p)
+        say(f"[2] z-update at D = {Dz}: max err {err:.2e}; device time "
+            f"(CUDA graph) kernel {ms_k:.5f} ms ({st.BODY} body, "
+            f"{st.plan(Dz, torch.cuda.get_device_properties(0).multi_processor_count)}"
+            f" blocks), plain {ms_p:.5f} ms, empty kernel {floor_ms:.5f} ms;"
+            f" per eager call kernel {eager_k:.4f} ms, plain {eager_p:.4f} "
+            f"ms; bound {b_ms:.6f} ms ({b_by}), "
+            f"{z_bytes / ms_k / 1e9:.3f} TB/s")
+    results["soft_threshold"] = dict(
+        z_times[D], max_abs_err=worst["soft_threshold"], shape=[D],
+        floor_ms=floor_ms, ms_1e6=z_times[1_000_003]["ms"],
+        bound_ms_1e6=z_times[1_000_003]["bound_ms"])
     return results
 
 
@@ -811,28 +917,14 @@ def phase_small(torch, api, SchedulerConfig, AdmmOptions, PoolConfig, lv, st):
 # ---------------------------------------------------------------------------
 
 
-def phase_main(torch, api, problems, SchedulerConfig, lv, st, ref,
-               kernel_ms):
-    cfg = SchedulerConfig(n_workers=PAPER_W, engine="batched", kernel="cuda")
+def paper_run(torch, api, SchedulerConfig, problem, kernel, lv, st):
+    """PAPER_ROUNDS rounds of the paper's deployment on ``problem``; the
+    wall and the kernels' launch counts after each round."""
+    cfg = SchedulerConfig(n_workers=PAPER_W, engine="batched", kernel=kernel)
     spec = api.ExperimentSpec(problem="logreg", problem_kwargs=PAPER_KW,
                               scheduler=cfg, max_rounds=PAPER_ROUNDS)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.time()
-    problem = problems.make("logreg", device="cuda", **PAPER_KW)
-    (idx, vals, b), mask = problem.batch_shards(PAPER_W)
-    torch.cuda.synchronize()
-    t_gen = time.time() - t0
-    t0 = time.time()
-    (A, b_dense), _ = problem.kernel_batch_shards(PAPER_W)
-    torch.cuda.synchronize()
-    t_stage = time.time() - t0
-    say(f"[4] paper instance: generated {PAPER_KW['n_samples']} x "
-        f"{PAPER_KW['n_features']} (density {PAPER_KW['density']}) in "
-        f"{t_gen:.2f} s; staged dense shards {tuple(A.shape)} "
-        f"({A.numel() * 4 / 1e9:.2f} GB) in {t_stage:.2f} s")
-
     walls, per_round = [], []
-    t_last = [time.time()]
+    t_last = [0.0]
 
     def on_round(m):
         torch.cuda.synchronize()
@@ -844,8 +936,42 @@ def phase_main(torch, api, problems, SchedulerConfig, lv, st, ref,
 
     lv.reset_launches()
     st.reset_launches()
+    torch.cuda.synchronize()
     t_last[0] = time.time()
     res = api.run(spec, problem=problem, on_round=on_round)
+    return res, walls, per_round
+
+
+def witness_gaps(got, want):
+    """Per round: the worst relative gap of r_norm, s_norm and rho, and the
+    largest |inner_mean| gap, of ``got`` against ``want``."""
+    rel, inner = 0.0, 0.0
+    for g, w in zip(got.trace, want.trace):
+        for key in ("r_norm", "s_norm", "rho"):
+            rel = max(rel, abs(g[key] - w[key]) / max(abs(w[key]), 1e-30))
+        inner = max(inner, abs(g["inner_mean"] - w["inner_mean"]))
+    return rel, inner
+
+
+def phase_main(torch, api, problems, SchedulerConfig, lv, st, ref,
+               kernel_ms):
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    problem = problems.make("logreg", device="cuda", **PAPER_KW)
+    problem.batch_shards(PAPER_W)
+    torch.cuda.synchronize()
+    t_gen = time.time() - t0
+    t0 = time.time()
+    (A, b_dense), mask = problem.kernel_batch_shards(PAPER_W)
+    torch.cuda.synchronize()
+    t_stage = time.time() - t0
+    say(f"[4] paper instance: generated {PAPER_KW['n_samples']} x "
+        f"{PAPER_KW['n_features']} (density {PAPER_KW['density']}) in "
+        f"{t_gen:.2f} s; staged dense shards {tuple(A.shape)} "
+        f"({A.numel() * 4 / 1e9:.2f} GB) in {t_stage:.2f} s")
+
+    res, walls, per_round = paper_run(torch, api, SchedulerConfig, problem,
+                                      "cuda", lv, st)
     launches = {"logistic": lv.LAUNCHES["logistic"],
                 "hinge": lv.LAUNCHES["hinge"],
                 "soft_threshold": st.LAUNCHES["soft_threshold"]}
@@ -882,18 +1008,89 @@ def phase_main(torch, api, problems, SchedulerConfig, lv, st, ref,
     torch.cuda.synchronize()
     err = max(max_err(torch, f_k, f_p, "logistic on the staged shards"),
               max_err(torch, g_k, g_p, "logistic grad on the staged shards"))
+    del f_k, g_k, f_p, g_p
     say(f"[4] launches in the run: {launches} over {len(res.trace)} rounds; "
         f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
         f"GB; kernel vs plain on the staged shards {err:.2e}; final z_nnz "
         f"{int((abs(z) > 0).sum())}")
+
+    # the witness: the same rounds on the plain sparse path (kernel="torch",
+    # on the card); the control: the kernel path with the last 1% of each
+    # lane's rows masked out, what a kernel that dropped the tail of a
+    # range would give
+    witness, w_walls, _ = paper_run(torch, api, SchedulerConfig, problem,
+                                    "torch", lv, st)
+    cut = -(-mask.shape[1] // 100)
+    mask_ctrl = mask.clone()
+    mask_ctrl[:, -cut:] = 0.0
+    problem._kernel_batch_cache[PAPER_W] = ((A, b_dense), mask_ctrl)
+    control, _, _ = paper_run(torch, api, SchedulerConfig, problem, "cuda",
+                              lv, st)
+    problem._kernel_batch_cache[PAPER_W] = ((A, b_dense), mask)
+    rel, inner = witness_gaps(res, witness)
+    c_rel, c_inner = witness_gaps(control, witness)
+    for name, r in (("torch", witness), ("control", control)):
+        say(f"[4] {name} run: " + "; ".join(
+            f"round {row['k']} r_norm {row['r_norm']:.6g}, s_norm "
+            f"{row['s_norm']:.6g}, rho {row['rho']:g}, inner_mean "
+            f"{row['inner_mean']:.3f}" for row in r.trace))
+    say(f"[4] witness: cuda vs torch worst relative gap (r_norm, s_norm, "
+        f"rho) {rel:.3e} (limit {WITNESS_RTOL:g}), inner_mean gap "
+        f"{inner:.3f} (limit {WITNESS_INNER:g}); control (last {cut} rows "
+        f"of each lane masked) vs torch {c_rel:.3e}, inner_mean gap "
+        f"{c_inner:.3f}; torch round walls "
+        f"{', '.join(f'{w:.2f}' for w in w_walls)} s")
+    if not (rel <= WITNESS_RTOL and inner <= WITNESS_INNER):
+        fail(f"paper instance: the cuda run strays from the torch run "
+             f"({rel:.3e} relative, {inner:.3f} inner_mean)")
+    if c_rel <= WITNESS_RTOL and c_inner <= WITNESS_INNER:
+        say("[4] the control passes the witness's limits: the witness "
+            "cannot tell it apart; phase 2's per-call parity is the guard")
     return launches
+
+
+def time_admm_kernels(torch, src: Path):
+    """The margin kernel's median time per call (logistic, paper shape)
+    and the z-update's device time per call in a CUDA graph (D = 10 000
+    and 1 000 003), with phase 2's inputs and timers, for the port under
+    ``src``.  It calls only ``margin_vjp_cuda`` and
+    ``soft_threshold_cuda``, whose signatures every version of the port
+    shares, so another checkout (a parent commit unpacked with ``git
+    archive``) can be timed in turns with this one on the same card."""
+    sys.path.insert(0, str(src))
+    from repro_torch.kernels import logistic_vjp as lv
+    from repro_torch.kernels import soft_threshold as st
+    if not Path(lv.__file__).resolve().is_relative_to(src):
+        fail(f"imported {lv.__file__}, not the port under {src}")
+    W, N, D = PAPER_W, -(-PAPER_KW["n_samples"] // PAPER_W), \
+        PAPER_KW["n_features"]
+    A, b, mask, x = margin_inputs(torch, W, N, D, (3,), seed=1)
+    margin_ms = median_ms(torch, lambda: lv.margin_vjp_cuda(
+        A, b, mask, x, loss="logistic"), 5)
+    del A, b, mask, x
+    torch.cuda.empty_cache()
+    z_ms = {}
+    for Dz in (D, 1_000_003):
+        g = torch.Generator(device="cuda").manual_seed(Dz)
+        omega = torch.randn((Dz,), generator=g, device="cuda")
+        z_old = torch.randn((Dz,), generator=g, device="cuda")
+        z_ms[Dz] = graph_ms(
+            torch, lambda: st.soft_threshold_cuda(omega, z_old, 0.37), 200)
+    say(json.dumps({"card": nvidia_smi("name,power.limit"), "src": str(src),
+                    "margin_shape": [W, N, D], "margin_ms": margin_ms,
+                    "z_update_graph_ms": z_ms}))
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="1,2,3,4,5",
                     help="comma-separated phases to run (default: all)")
-    phases = {int(p) for p in ap.parse_args(argv).phases.split(",")}
+    ap.add_argument("--src", type=Path,
+                    help="run no phase: time the margin kernel and the "
+                         "z-update of the port under this src directory "
+                         "and print one JSON line (see time_admm_kernels)")
+    args = ap.parse_args(argv)
+    phases = {int(p) for p in args.phases.split(",")}
 
     if not (SRC / "repro_torch" / "api.py").is_file():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
@@ -901,6 +1098,9 @@ def main(argv=None):
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this needs a CUDA card")
+    if args.src is not None:
+        time_admm_kernels(torch, args.src.resolve())
+        return
     sys.path.insert(0, str(SRC))
     import torch.nn.functional as F
     from repro_torch import api, configs, problems
@@ -924,10 +1124,10 @@ def main(argv=None):
     say(f"[1] {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()};"
         f" torch {torch.__version__}, CUDA {torch.version.cuda}; kernels "
         f"built from {build.CSRC.relative_to(ROOT)} in {t_build:.1f} s")
-    for name, log in build.LOGS.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                say(f"[1] {name}: {line.strip()}")
+    for name in build.SOURCES:
+        for fn, regs, spill in ptxas_report(build.log(name)):
+            say(f"[1] {name} {fn}: {regs} registers, {spill}")
+    check_margin_spills(build.log("logistic_vjp"))
 
     results = {}
     if 2 in phases:
@@ -954,13 +1154,12 @@ def main(argv=None):
     # (name, source, TPU kernel, on a main path, body: the design that ran)
     meta = {
         "logistic": ("margin_vjp_logistic", "logistic_vjp",
-                     "src/repro/kernels/logistic_vjp.py:41", True,
-                     "two_pass"),
+                     "src/repro/kernels/logistic_vjp.py:41", True, lv.BODY),
         "hinge": ("margin_vjp_hinge", "logistic_vjp",
-                  "src/repro/kernels/logistic_vjp.py:41", False, "two_pass"),
+                  "src/repro/kernels/logistic_vjp.py:41", False, lv.BODY),
         "soft_threshold": ("soft_threshold", "soft_threshold",
                            "src/repro/kernels/soft_threshold.py:20", True,
-                           "one_pass"),
+                           st.BODY),
         "flash_attention": ("flash_attention", "flash_attention",
                             "src/repro/kernels/flash_attention.py:28", True,
                             results["flash_attention"]["body"]),
@@ -978,7 +1177,9 @@ def main(argv=None):
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r.get("library_ms"), on_path=on_path, body=body,
             shape=r["shape"],
-            **{k: r[k] for k in ("eager_ms", "eager_plain_ms") if k in r}))
+            **{k: r[k] for k in ("eager_ms", "eager_plain_ms", "read_ms",
+                                 "floor_ms", "ms_1e6", "bound_ms_1e6")
+               if k in r}))
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

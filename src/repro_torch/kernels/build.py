@@ -26,7 +26,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# nvcc's output (ptxas registers / shared memory / spills) per library
+# nvcc's output (ptxas registers / shared memory / spills) per library,
+# also kept beside each library as lib<name>-<hash>.log
 LOGS: Dict[str, str] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -76,6 +77,7 @@ def build(names: Iterable[str] = SOURCES) -> float:
     for name, (proc, tmp, out) in procs.items():
         LOGS[name] = proc.communicate()[0]
         if proc.returncode == 0:
+            out.with_suffix(".log").write_text(LOGS[name])
             os.replace(tmp, out)
         else:
             failed.append(f"{name} (nvcc exit {proc.returncode}):\n"
@@ -83,6 +85,16 @@ def build(names: Iterable[str] = SOURCES) -> float:
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return time.time() - t0
+
+
+def log(name: str) -> str:
+    """nvcc's output from building ``csrc/<name>.cu`` (ptxas registers,
+    shared memory and spills per kernel), built if needed."""
+    if name not in LOGS:
+        build([name])
+        path = library_path(name).with_suffix(".log")
+        LOGS[name] = path.read_text() if path.exists() else ""
+    return LOGS[name]
 
 
 def load(name: str) -> ctypes.CDLL:

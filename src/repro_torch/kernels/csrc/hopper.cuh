@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the attention kernels: shared
-// memory addresses, mbarriers, TMA tile loads, 16-byte cp.async, wgmma
-// descriptors and instructions, register reallocation.  Raw PTX, so a
-// source that includes this compiles in seconds with no CUTLASS.
+// Hopper (sm_90a) building blocks shared by the kernels: shared memory
+// addresses, mbarriers, TMA tile and bulk loads, cp.async, cluster barriers
+// and distributed shared memory, wgmma descriptors and instructions,
+// register reallocation.  Raw PTX, so a source that includes this compiles
+// in seconds with no CUTLASS.
 #pragma once
 
 #include <cuda.h>
@@ -62,6 +63,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
         "r"(c1), "r"(c2), "r"(c3) : "memory");
 }
 
+// a 1-d bulk copy (TMA without a tensor map) of ``bytes`` from global to
+// shared memory, completing on ``bar``: both addresses 16-byte aligned,
+// ``bytes`` a multiple of 16
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
 // generic-proxy writes to shared memory made visible to wgmma / TMA
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -90,6 +102,41 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- cp.async (4 bytes), tracked by an mbarrier ----------------------------
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               ::"r"(dst), "l"(src) : "memory");
+}
+
+// one arrival on ``bar`` once every cp.async this thread issued so far has
+// landed; it counts against the barrier's expected arrivals
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               ::"r"(bar) : "memory");
+}
+
+// ---- thread block clusters -------------------------------------------------
+
+// every thread of every block of the cluster; orders shared memory too
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the float at this block's shared address ``addr`` in block ``rank`` of
+// the cluster (distributed shared memory)
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr, uint32_t rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote) : "r"(addr), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v) : "r"(remote) : "memory");
+  return v;
 }
 
 // ---- register reallocation between warpgroups -----------------------------

@@ -147,10 +147,97 @@ def test_cuda_device_without_a_card_raises():
 
 
 @pytest.mark.parametrize("W,N,D,sms,want", [
-    (64, 9375, 10_000, 132, 4),     # the paper instance on an H100
-    (1024, 8, 24, 132, 1),          # many tiny lanes: rows are the limit
-    (1, 2048, 128, 132, 32),        # one lane: row ranges fill the card
-    (8, 10, 5000, 132, 1),
+    (64, 9375, 10_000, 132, (132, 1, 512, 5)),   # the paper instance
+    (1024, 8, 128, 132, (132, 1, 32, 1)),        # ranges cross many lanes
+    (1, 2048, 128, 132, (132, 1, 32, 1)),        # one lane
+    (3, 111, 70, 132, (132, 1, 32, 1)),          # ragged rows and columns
+    (2, 300, 40_000, 132, (33, 4, 512, 5)),      # a cluster of 4 blocks
+    (1, 1, 5, 132, (1, 1, 32, 1)),               # fewer rows than SMs
+    (2, 50, 20_001, 132, (33, 4, 512, 3)),       # cp.async rows, a cluster
+    (2, 10, t_lv.max_d(True) + 4, 132, None),    # above the cluster limit
+    (2, 10, t_lv.max_d(False) + 1, 132, None),   # the same, cp.async rows
 ])
-def test_row_splits(W, N, D, sms, want):
-    assert t_lv.row_splits(W, N, D, sms) == want
+def test_margin_plan(W, N, D, sms, want):
+    """The one-pass margin kernel's launch: every (lane, row) in exactly
+    one range, ranges within one row of each other, each lane's partials
+    summed in the order its ranges touch it (distinct scratch slots
+    g + w), and the columns held by T * K * 4 * C >= D."""
+    if want is None:
+        with pytest.raises(ValueError,
+                           match=str(t_lv.max_d(D % 4 == 0))):
+            t_lv.plan(W, N, D, sms)
+        return
+    p = t_lv.plan(W, N, D, sms)
+    assert (p.groups, p.cluster, p.threads, p.chunks) == want
+    ranges = p.ranges()
+    assert len(ranges) == p.groups and ranges[0][0] == 0
+    assert ranges[-1][1] == W * N
+    assert all(e == s for (_, e), (s, _) in zip(ranges, ranges[1:]))
+    lengths = {e - s for s, e in ranges}
+    assert min(lengths) >= 1 and max(lengths) - min(lengths) <= 1
+    slots = set()
+    for w in range(W):
+        touch = p.touchers(w)
+        # the lane's rows, walked in order, meet its ranges in combine order
+        met = []
+        for r in range(w * N, (w + 1) * N, max(1, N // 64)):
+            g = next(g for g, (s, e) in enumerate(ranges) if s <= r < e)
+            if not met or met[-1] != g:
+                met.append(g)
+        assert touch[0] == met[0] and touch == sorted(touch)
+        assert touch == list(range(touch[0], touch[-1] + 1))
+        slots.update(g + w for g in touch)
+    n_pairs = sum(len(p.touchers(w)) for w in range(W))
+    assert len(slots) == n_pairs and max(slots) < p.scratch_slots
+    assert p.threads * p.chunks * 4 * p.cluster >= D
+    assert p.threads * p.chunks * 4 >= p.cols
+    assert p.cluster == 1 or p.cols % 4 == 0     # whole float4 chunks
+    assert D - (p.cluster - 1) * p.cols > 0          # every block has columns
+    assert p.threads % 32 == 0 and p.threads <= t_lv.MAX_THREADS
+    assert p.bulk == (D % 4 == 0)
+    assert 1 <= p.chunks <= t_lv.MAX_CHUNKS[p.bulk]
+    assert 2 <= p.stages <= t_lv.MAX_STAGES
+    assert p.smem_bytes <= t_lv.RING_BYTES
+
+
+@pytest.mark.parametrize("D,want", [(1, 1), (70, 1), (10_000, 10),
+                                    (1_000_003, 132)])
+def test_z_update_plan(D, want):
+    """One block per 4 * 256 elements, at most one per SM; the block
+    partials fit the scratch the wrapper allocates."""
+    blocks = t_st.plan(D, 132)
+    assert blocks == want
+    assert 1 <= blocks <= 132
+    assert blocks == 1 or (blocks - 1) * 4 * t_st.THREADS < D
+
+
+def _ptxas_entry(mangled, spill_bytes):
+    return (f"ptxas info    : Compiling entry function '{mangled}' for "
+            f"'sm_90a'\n"
+            f"ptxas info    : Function properties for {mangled}\n"
+            f"    0 bytes stack frame, {spill_bytes} bytes spill stores, "
+            f"{spill_bytes} bytes spill loads\n"
+            f"ptxas info    : Used 128 registers, 400 bytes cmem[0]\n")
+
+
+_MARGIN_5 = "_ZN12_GLOBAL__N_115margin_one_passILi5ELb1EEEvNS_6ParamsE"
+_MARGIN_4 = "_ZN12_GLOBAL__N_115margin_one_passILi4ELb0EEEvNS_6ParamsE"
+_OTHER = "_ZN12_GLOBAL__N_121soft_threshold_blocksILb1EEEvPKfS2_fPfS3_PiS4_i"
+
+
+@pytest.mark.parametrize("log,passes", [
+    (_ptxas_entry(_MARGIN_5, 0) + _ptxas_entry(_MARGIN_4, 0), True),
+    (_ptxas_entry(_MARGIN_5, 0) + _ptxas_entry(_MARGIN_4, 8), False),
+    ("", False),
+    (_ptxas_entry(_OTHER, 0), False),
+], ids=["clean", "spill", "no_log", "no_margin_body"])
+def test_chip_smoke_margin_spill_check(log, passes):
+    """Phase 1's gate passes only on a report that names margin bodies,
+    none of which spills: a missing or foreign report is no evidence."""
+    from test_torch_attention import _chip_smoke
+    smoke = _chip_smoke()
+    if passes:
+        smoke.check_margin_spills(log)
+    else:
+        with pytest.raises(SystemExit):
+            smoke.check_margin_spills(log)
