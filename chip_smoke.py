@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # every phase, as a check runs it
     python3 chip_smoke.py --phases 1,2,5  # the kernels and serving only
+    python3 chip_smoke.py --phases 1,2,6  # the kernels and svm at size
     python3 chip_smoke.py --src OTHER/src # time another checkout's ADMM
                                           # kernels, nothing else
 
@@ -22,12 +23,15 @@ caught):
   3. small instances on the card: the engine suite's logreg instance
      against the reference's trace (ENGINE_ANCHOR), and the registry's
      default instance in float64 against the same run on the CPU and in
-     float32 (both engines) against that float64 run;
+     float32 (both engines) against that float64 run; then svm, lasso,
+     softmax and logreg_l2 at the engine suite's sizes, and logreg and
+     svm under async_, topk and qsgd, each on the card and on the CPU;
   4. the logreg main path at the paper's size: N=600 000, d=10 000, W=64,
      the batched engine with kernel="cuda", through ``api.run``, with the
      margin and z-update kernels' launch counts read around that run;
-     then the same rounds with kernel="torch" (the plain sparse path) as
-     the witness, and a control with 1% of each lane's rows masked out;
+     then the same rounds twice with kernel="torch" (the plain sparse
+     path) as the witness, and a control with the last 1% of each lane's
+     rows masked out;
   5. serving: reduced granite_8b in float32 (2 layers, full and windowed
      attention) on the card against the same run on the CPU, then
      granite_8b at full width and depth in bfloat16 through
@@ -35,8 +39,12 @@ caught):
      with the attention kernels' launch counts read around that run, and
      prefill-then-decode held against a prefill over the longer prompt, in
      bfloat16 and, at full width and depth too, in float32;
-then the kernels line {"kernels": [...]} (when phases 2, 4 and 5 ran; each
-entry names the kernel's design in "body") and the last line
+  6. svm at the paper's size: phase 4's data and fleet under the smoothed
+     hinge, through ``api.run`` on the margin kernel's hinge instantiation
+     and the z-update, with its witness and control as in phase 4, and
+     the peak device memory;
+then the kernels line {"kernels": [...]} (when phases 2, 4, 5 and 6 ran;
+each entry names the kernel's design in "body") and the last line
 {"ok": true, "device": {...}}.
 
 It imports torch and the port only.  Without a CUDA device, or outside a
@@ -94,6 +102,18 @@ PAPER_ROUNDS = 2
 # (the last 1% of each lane's rows masked out) recorded in PERF.md
 WITNESS_RTOL = 1e-3
 WITNESS_INNER = 2.0
+CONTROL_FRAC = 0.01
+# phase 6: svm on the paper's data (Koh-Kim-Boyd, Section III) under the
+# smoothed hinge of width 0.5 (src/repro_torch/problems/svm.py), same W,
+# rounds and FISTA options as phase 4.  Its witness readings on an "NVIDIA
+# H100 80GB HBM3, 700.00 W" support the same limits (PERF.md): sound
+# 4.8e-5 to 3.1e-4 relative and 0.05 inner_mean, the witness's own
+# spread 9.9e-5 to 1.8e-4 and 0.02-0.03, the control 8.2e-3 and 3.0
+SVM_KW = dict(n_samples=600_000, n_features=10_000, density=0.001,
+              lam1=1.0, smoothing=0.5, fista=PAPER_KW["fista"])
+# the paper-size paths: phase -> (problem, kwargs, margin loss)
+PAPER_PATHS = {4: ("logreg", PAPER_KW, "logistic"),
+               6: ("svm", SVM_KW, "hinge")}
 
 # the bound: H100 SXM peak memory rate, float32 rate and dense bf16
 # tensor-core rate (NVIDIA's data sheet)
@@ -836,17 +856,18 @@ def _leaves(tree):
 
 
 def small_run(api, SchedulerConfig, AdmmOptions, PoolConfig, kw, W, rounds,
-              engine, kernel, device):
+              engine, kernel, device, problem="logreg", pool_seed=0,
+              **extra):
     spec = api.ExperimentSpec(
-        problem="logreg", problem_kwargs=kw,
+        problem=problem, problem_kwargs=kw,
         scheduler=SchedulerConfig(n_workers=W, engine=engine, kernel=kernel,
                                   admm=AdmmOptions(max_iters=40),
-                                  pool=PoolConfig(seed=0)),
+                                  pool=PoolConfig(seed=pool_seed), **extra),
         max_rounds=rounds)
     res = api.run(spec, device=device)
     if len(res.trace) != rounds:
-        fail(f"{engine}/{kernel} on {device}: {len(res.trace)} rounds, "
-             f"expected {rounds}")
+        fail(f"{problem} {engine}/{kernel} {extra} on {device}: "
+             f"{len(res.trace)} rounds, expected {rounds}")
     return res
 
 
@@ -912,16 +933,81 @@ def phase_small(torch, api, SchedulerConfig, AdmmOptions, PoolConfig, lv, st):
         f"{cpu64.trace[-1]['r_norm']:.4f}")
 
 
+# phase 3's other workloads (tests/test_engine.py::WORKLOADS; logreg_l2 on
+# logreg's instance there) and modes: (label, problem, kwargs, W, config)
+SMALL_WORKLOADS = {
+    "svm": dict(n_samples=50, n_features=16),
+    "lasso": dict(n_samples=50, n_features=16),
+    "softmax": dict(n_samples=50, n_features=8, n_classes=3),
+    "logreg_l2": dict(n_samples=50, n_features=24, density=0.2),
+}
+ASYNC = dict(mode="async_", async_batch=4, staleness_bound=4, pool_seed=3)
+SMALL_CASES = (
+    [(name, name, kw, 4, {}) for name, kw in SMALL_WORKLOADS.items()]
+    + [(f"{name} async_", name, kw, 8, ASYNC)
+       for name, kw in (("logreg", ENGINE_KW),
+                        ("svm", SMALL_WORKLOADS["svm"]))]
+    + [(f"logreg {c}", "logreg", ENGINE_KW, 4, dict(compress=c))
+       for c in ("topk", "qsgd")])
+
+
+def phase_small_modes(torch, api, SchedulerConfig, AdmmOptions, PoolConfig,
+                      lv, st):
+    """Each case on the card and on the CPU: float64 on both engines at
+    F64_RTOL with equal inner counts; float32 with kernel="cuda" (the
+    batched engine; async_ solves per arrival, so there only the z-update
+    is fused) against the same float32 run with kernel="torch" on the CPU,
+    at the engine tolerance ANCHOR_RTOL."""
+    args = (api, SchedulerConfig, AdmmOptions, PoolConfig)
+    lv.reset_launches()
+    st.reset_launches()
+    worst64, worst32 = 0.0, 0.0
+    for label, name, kw, W, extra in SMALL_CASES:
+        engines = ("loop",) if extra.get("mode") == "async_" else (
+            "loop", "batched")
+        for engine in engines:
+            runs = [small_run(*args, dict(kw, dtype="float64"), W,
+                              ENGINE_ROUNDS, engine, "torch", dev,
+                              problem=name, **extra)
+                    for dev in ("cuda", "cpu")]
+            worst64 = max(worst64, hold(
+                f"{label} {engine} float64 card vs CPU",
+                rsr(runs[0].trace), rsr(runs[1].trace), F64_RTOL))
+            if ([r["inner_mean"] for r in runs[0].trace]
+                    != [r["inner_mean"] for r in runs[1].trace]):
+                fail(f"{label} {engine} float64: inner iterations differ "
+                     f"from the CPU's")
+        engine = engines[-1]
+        card = small_run(*args, kw, W, ENGINE_ROUNDS, engine, "cuda", "cuda",
+                         problem=name, **extra)
+        cpu = small_run(*args, kw, W, ENGINE_ROUNDS, engine, "torch", "cpu",
+                        problem=name, **extra)
+        worst32 = max(worst32, hold(f"{label} float32 cuda vs CPU",
+                                    rsr(card.trace), rsr(cpu.trace),
+                                    ANCHOR_RTOL))
+    if lv.LAUNCHES["hinge"] == 0 or st.LAUNCHES["soft_threshold"] == 0:
+        fail(f"the small svm runs launched no hinge or z-update kernel: "
+             f"{lv.LAUNCHES}, {st.LAUNCHES}")
+    say(f"[3] {', '.join(c[0] for c in SMALL_CASES)} ({ENGINE_ROUNDS} "
+        f"rounds each): float64 card vs CPU {worst64:.2e} (rtol "
+        f"{F64_RTOL:g}, equal inner counts); float32 kernel=cuda on the "
+        f"card vs kernel=torch on the CPU {worst32:.2e} (rtol "
+        f"{ANCHOR_RTOL:g}); launches {dict(lv.LAUNCHES)}, "
+        f"{dict(st.LAUNCHES)}")
+
+
 # ---------------------------------------------------------------------------
-# phase 4: the main path at the paper's size
+# phases 4 and 6: the paper's size
 # ---------------------------------------------------------------------------
 
 
-def paper_run(torch, api, SchedulerConfig, problem, kernel, lv, st):
-    """PAPER_ROUNDS rounds of the paper's deployment on ``problem``; the
-    wall and the kernels' launch counts after each round."""
+def paper_run(torch, api, SchedulerConfig, problem, phase, kernel, lv, st):
+    """PAPER_ROUNDS rounds of phase ``phase``'s deployment on ``problem``;
+    the wall and the margin and z-update kernels' launch counts after each
+    round."""
+    name, kw, loss = PAPER_PATHS[phase]
     cfg = SchedulerConfig(n_workers=PAPER_W, engine="batched", kernel=kernel)
-    spec = api.ExperimentSpec(problem="logreg", problem_kwargs=PAPER_KW,
+    spec = api.ExperimentSpec(problem=name, problem_kwargs=kw,
                               scheduler=cfg, max_rounds=PAPER_ROUNDS)
     walls, per_round = [], []
     t_last = [0.0]
@@ -931,8 +1017,7 @@ def paper_run(torch, api, SchedulerConfig, problem, kernel, lv, st):
         now = time.time()
         walls.append(now - t_last[0])
         t_last[0] = now
-        per_round.append((lv.LAUNCHES["logistic"],
-                          st.LAUNCHES["soft_threshold"]))
+        per_round.append((lv.LAUNCHES[loss], st.LAUNCHES["soft_threshold"]))
 
     lv.reset_launches()
     st.reset_launches()
@@ -942,22 +1027,50 @@ def paper_run(torch, api, SchedulerConfig, problem, kernel, lv, st):
     return res, walls, per_round
 
 
+def control_mask(mask, frac: float = CONTROL_FRAC):
+    """The control's row mask: the last ceil(frac · n) of each lane's n
+    real rows (the leading n, as ``batch_shards`` lays them out) masked
+    out — what a kernel that dropped the tail of each lane would see."""
+    ctrl = mask.clone()
+    for w, n in enumerate(mask.sum(dim=1).tolist()):
+        n = int(n)
+        ctrl[w, n - math.ceil(n * frac):n] = 0.0
+    return ctrl
+
+
 def witness_gaps(got, want):
-    """Per round: the worst relative gap of r_norm, s_norm and rho, and the
-    largest |inner_mean| gap, of ``got`` against ``want``."""
+    """Over the rounds of two traces (lists of trace rows): the worst
+    relative gap of r_norm, s_norm and rho, and the largest |inner_mean|
+    gap, of ``got`` against ``want``."""
+    if len(got) != len(want):
+        fail(f"witness: {len(got)} rounds against {len(want)}")
     rel, inner = 0.0, 0.0
-    for g, w in zip(got.trace, want.trace):
+    for g, w in zip(got, want):
         for key in ("r_norm", "s_norm", "rho"):
             rel = max(rel, abs(g[key] - w[key]) / max(abs(w[key]), 1e-30))
         inner = max(inner, abs(g["inner_mean"] - w["inner_mean"]))
     return rel, inner
 
 
-def phase_main(torch, api, problems, SchedulerConfig, lv, st, ref,
-               kernel_ms):
+def phase_paper(torch, api, problems, SchedulerConfig, lv, st, ref,
+                kernel_ms, phase):
+    """Phase 4 (logreg) or 6 (svm): generate and stage the paper's data
+    for W=64, run PAPER_ROUNDS rounds through ``api.run`` with
+    kernel="cuda", hold the margin kernel against its plain version on the
+    staged shards at the workers' last x, then the witness (the same
+    rounds twice with kernel="torch", the plain sparse path on the card)
+    and the control (the kernel path with ``control_mask``).  Returns the
+    run's launch counts."""
+    name, kw, loss = PAPER_PATHS[phase]
+    rtol, inner_limit = WITNESS_RTOL, WITNESS_INNER
+    tag = f"[{phase}]"
+    gamma = kw.get("smoothing", 0.0)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    say(f"{tag} device memory in use before the phase: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
     t0 = time.time()
-    problem = problems.make("logreg", device="cuda", **PAPER_KW)
+    problem = problems.make(name, device="cuda", **kw)
     problem.batch_shards(PAPER_W)
     torch.cuda.synchronize()
     t_gen = time.time() - t0
@@ -965,37 +1078,39 @@ def phase_main(torch, api, problems, SchedulerConfig, lv, st, ref,
     (A, b_dense), mask = problem.kernel_batch_shards(PAPER_W)
     torch.cuda.synchronize()
     t_stage = time.time() - t0
-    say(f"[4] paper instance: generated {PAPER_KW['n_samples']} x "
-        f"{PAPER_KW['n_features']} (density {PAPER_KW['density']}) in "
-        f"{t_gen:.2f} s; staged dense shards {tuple(A.shape)} "
-        f"({A.numel() * 4 / 1e9:.2f} GB) in {t_stage:.2f} s")
+    say(f"{tag} {name} at the paper's size: generated {kw['n_samples']} x "
+        f"{kw['n_features']} (density {kw['density']}) in {t_gen:.2f} s; "
+        f"staged dense shards {tuple(A.shape)} ({A.numel() * 4 / 1e9:.2f} "
+        f"GB) in {t_stage:.2f} s")
 
     res, walls, per_round = paper_run(torch, api, SchedulerConfig, problem,
-                                      "cuda", lv, st)
-    launches = {"logistic": lv.LAUNCHES["logistic"],
-                "hinge": lv.LAUNCHES["hinge"],
+                                      phase, "cuda", lv, st)
+    launches = {loss: lv.LAUNCHES[loss],
                 "soft_threshold": st.LAUNCHES["soft_threshold"]}
     before = (0, 0)
     for row, wall, counts in zip(res.trace, walls, per_round):
         n_margin, n_z = (c - b for c, b in zip(counts, before))
         before = counts
+        if n_margin <= 0 or n_z <= 0:
+            fail(f"{name} round {row['k']}: {n_margin} {loss} and {n_z} "
+                 f"z-update launches")
         busy = ""
         if kernel_ms:
-            t_k = (n_margin * kernel_ms["logistic"]
+            t_k = (n_margin * kernel_ms[loss]
                    + n_z * kernel_ms["soft_threshold"]) / 1e3
-            busy = f" (launches x phase-2 kernel time: {t_k:.2f} s)"
-        say(f"[4] round {row['k']}: wall {wall:.2f} s, margin launches "
+            busy = (f" (launches x phase-2 kernel time: {n_margin} x "
+                    f"{kernel_ms[loss]:.3f} ms + {n_z} z-updates = "
+                    f"{t_k:.2f} s)")
+        say(f"{tag} round {row['k']}: wall {wall:.2f} s, {loss} launches "
             f"{n_margin}, z-update launches {n_z}{busy}, r_norm "
             f"{row['r_norm']:.6g}, s_norm {row['s_norm']:.6g}, rho "
             f"{row['rho']:g}, inner_mean {row['inner_mean']:.3f}, "
             f"inner_max {int(res.history[row['k'] - 1].inner_iters.max())}"
             f", z_nnz {row['z_nnz']}")
-    if launches["logistic"] <= 0 or launches["soft_threshold"] <= 0:
-        fail(f"the main path did not go through the kernels: {launches}")
     z = res.z
-    if z.shape != (PAPER_KW["n_features"],) or not all(
+    if z.shape != (kw["n_features"],) or not all(
             math.isfinite(v) for v in z.tolist()):
-        fail("the paper instance's z is not a finite d-vector")
+        fail(f"the {name} paper instance's z is not a finite d-vector")
     for row in res.trace:
         if not (math.isfinite(row["r_norm"]) and math.isfinite(row["s_norm"])
                 and row["inner_mean"] >= 1 and row["z_nnz"] >= 0):
@@ -1003,49 +1118,55 @@ def phase_main(torch, api, problems, SchedulerConfig, lv, st, ref,
 
     # the staged shards: kernel against plain at the workers' last x
     xs = res.scheduler.x.contiguous()
-    f_k, g_k = lv.margin_vjp_cuda(A, b_dense, mask, xs, loss="logistic")
-    f_p, g_p = ref.logistic_vjp_ref(A, b_dense, mask, xs)
+    f_k, g_k = lv.margin_vjp_cuda(A, b_dense, mask, xs, loss=loss,
+                                  gamma=gamma)
+    f_p, g_p = (ref.logistic_vjp_ref(A, b_dense, mask, xs)
+                if loss == "logistic"
+                else ref.svm_vjp_ref(A, b_dense, mask, xs, gamma))
     torch.cuda.synchronize()
-    err = max(max_err(torch, f_k, f_p, "logistic on the staged shards"),
-              max_err(torch, g_k, g_p, "logistic grad on the staged shards"))
+    err = max(max_err(torch, f_k, f_p, f"{loss} on the staged shards"),
+              max_err(torch, g_k, g_p, f"{loss} grad on the staged shards"))
     del f_k, g_k, f_p, g_p
-    say(f"[4] launches in the run: {launches} over {len(res.trace)} rounds; "
-        f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
-        f"GB; kernel vs plain on the staged shards {err:.2e}; final z_nnz "
-        f"{int((abs(z) > 0).sum())}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    say(f"{tag} launches in the run: {launches} over {len(res.trace)} "
+        f"rounds; peak device memory {peak:.2f} GB; kernel vs plain on the "
+        f"staged shards {err:.2e} (tolerance {PARITY_RTOL:g} x max(1, "
+        f"|plain|)); final z_nnz {int((abs(z) > 0).sum())}")
 
-    # the witness: the same rounds on the plain sparse path (kernel="torch",
-    # on the card); the control: the kernel path with the last 1% of each
-    # lane's rows masked out, what a kernel that dropped the tail of a
-    # range would give
+    # the witness, twice (its float atomics do not repeat: the spread); the
+    # control: the kernel path with the tail of each lane masked out
     witness, w_walls, _ = paper_run(torch, api, SchedulerConfig, problem,
-                                    "torch", lv, st)
-    cut = -(-mask.shape[1] // 100)
-    mask_ctrl = mask.clone()
-    mask_ctrl[:, -cut:] = 0.0
+                                    phase, "torch", lv, st)
+    again, _, _ = paper_run(torch, api, SchedulerConfig, problem, phase,
+                            "torch", lv, st)
+    mask_ctrl = control_mask(mask)
+    cut = int((mask - mask_ctrl).sum(dim=1).max())
     problem._kernel_batch_cache[PAPER_W] = ((A, b_dense), mask_ctrl)
-    control, _, _ = paper_run(torch, api, SchedulerConfig, problem, "cuda",
-                              lv, st)
+    control, _, _ = paper_run(torch, api, SchedulerConfig, problem, phase,
+                              "cuda", lv, st)
     problem._kernel_batch_cache[PAPER_W] = ((A, b_dense), mask)
-    rel, inner = witness_gaps(res, witness)
-    c_rel, c_inner = witness_gaps(control, witness)
-    for name, r in (("torch", witness), ("control", control)):
-        say(f"[4] {name} run: " + "; ".join(
+    rel, inner = witness_gaps(res.trace, witness.trace)
+    s_rel, s_inner = witness_gaps(again.trace, witness.trace)
+    c_rel, c_inner = witness_gaps(control.trace, witness.trace)
+    for label, r in (("torch", witness), ("torch again", again),
+                     ("control", control)):
+        say(f"{tag} {label} run: " + "; ".join(
             f"round {row['k']} r_norm {row['r_norm']:.6g}, s_norm "
             f"{row['s_norm']:.6g}, rho {row['rho']:g}, inner_mean "
             f"{row['inner_mean']:.3f}" for row in r.trace))
-    say(f"[4] witness: cuda vs torch worst relative gap (r_norm, s_norm, "
-        f"rho) {rel:.3e} (limit {WITNESS_RTOL:g}), inner_mean gap "
-        f"{inner:.3f} (limit {WITNESS_INNER:g}); control (last {cut} rows "
-        f"of each lane masked) vs torch {c_rel:.3e}, inner_mean gap "
+    say(f"{tag} witness: cuda vs torch worst relative gap (r_norm, s_norm, "
+        f"rho) {rel:.3e} (limit {rtol:g}), inner_mean gap {inner:.3f} "
+        f"(limit {inner_limit:g}); torch vs torch again (the witness's "
+        f"spread) {s_rel:.3e}, {s_inner:.3f}; control (last {cut} rows of "
+        f"each lane masked) vs torch {c_rel:.3e}, inner_mean gap "
         f"{c_inner:.3f}; torch round walls "
         f"{', '.join(f'{w:.2f}' for w in w_walls)} s")
-    if not (rel <= WITNESS_RTOL and inner <= WITNESS_INNER):
-        fail(f"paper instance: the cuda run strays from the torch run "
-             f"({rel:.3e} relative, {inner:.3f} inner_mean)")
-    if c_rel <= WITNESS_RTOL and c_inner <= WITNESS_INNER:
-        say("[4] the control passes the witness's limits: the witness "
-            "cannot tell it apart; phase 2's per-call parity is the guard")
+    if not (rel <= rtol and inner <= inner_limit):
+        fail(f"{name} paper instance: the cuda run strays from the torch "
+             f"run ({rel:.3e} relative, {inner:.3f} inner_mean)")
+    if c_rel <= rtol and c_inner <= inner_limit:
+        say(f"{tag} the control passes the witness's limits: the witness "
+            f"cannot tell it apart; phase 2's per-call parity is the guard")
     return launches
 
 
@@ -1083,7 +1204,7 @@ def time_admm_kernels(torch, src: Path):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5",
+    ap.add_argument("--phases", default="1,2,3,4,5,6",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--src", type=Path,
                     help="run no phase: time the margin kernel and the "
@@ -1136,17 +1257,33 @@ def main(argv=None):
     if 3 in phases:
         phase_small(torch, api, SchedulerConfig, AdmmOptions, PoolConfig,
                     lv, st)
+        phase_small_modes(torch, api, SchedulerConfig, AdmmOptions,
+                          PoolConfig, lv, st)
     kernel_ms = {k: r["ms"] for k, r in results.items()}
-    launches = {}
+    launches, z_by_phase = {}, {}
     if 4 in phases:
-        launches.update(phase_main(torch, api, problems, SchedulerConfig, lv,
-                                   st, ref, kernel_ms))
+        got = phase_paper(torch, api, problems, SchedulerConfig, lv, st,
+                          ref, kernel_ms, 4)
+        z_by_phase[4] = got.pop("soft_threshold")
+        launches.update(got)
+        gc.collect()
+        torch.cuda.empty_cache()
     if 5 in phases:
         gc.collect()
         phase_serve_reduced(torch, configs, model, fa, dec)
         launches.update(phase_serve(torch, configs, model, serve, fa, dec,
                                     kernel_ms)[0])
-    if not {2, 4, 5} <= phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+    if 6 in phases:
+        got = phase_paper(torch, api, problems, SchedulerConfig, lv, st,
+                          ref, kernel_ms, 6)
+        z_by_phase[6] = got.pop("soft_threshold")
+        launches.update(got)
+    # the z-update runs on both paper-size paths; each count was read
+    # around its own path's run
+    launches["soft_threshold"] = sum(z_by_phase.values())
+    if not {2, 4, 5, 6} <= phases:
         say(f"phases {sorted(phases)} passed")
         return
 
@@ -1156,7 +1293,7 @@ def main(argv=None):
         "logistic": ("margin_vjp_logistic", "logistic_vjp",
                      "src/repro/kernels/logistic_vjp.py:41", True, lv.BODY),
         "hinge": ("margin_vjp_hinge", "logistic_vjp",
-                  "src/repro/kernels/logistic_vjp.py:41", False, lv.BODY),
+                  "src/repro/kernels/logistic_vjp.py:41", True, lv.BODY),
         "soft_threshold": ("soft_threshold", "soft_threshold",
                            "src/repro/kernels/soft_threshold.py:20", True,
                            st.BODY),
@@ -1176,7 +1313,8 @@ def main(argv=None):
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r.get("library_ms"), on_path=on_path, body=body,
-            shape=r["shape"],
+            shape=r["shape"], **({"launches_by_phase": z_by_phase}
+                                 if key == "soft_threshold" else {}),
             **{k: r[k] for k in ("eager_ms", "eager_plain_ms", "read_ms",
                                  "floor_ms", "ms_1e6", "bound_ms_1e6")
                if k in r}))

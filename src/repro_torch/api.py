@@ -11,9 +11,14 @@
     result.trace[-1]["r_norm"], result.cost_usd
 
 ``run`` and ``build`` put the problem on the card unless ``device`` says
-otherwise; without a card, ``device="cuda"`` raises.  The multi-tenant
-cluster surface (``submit``, ``run_all``, ``replay``, DAGs) is not ported
-yet.
+otherwise; without a card, ``device="cuda"`` raises.
+
+Ported: the first-order workloads (``logreg``, ``svm``, ``lasso``,
+``softmax``, ``logreg_l2``), every barrier mode (sync, drop_slowest,
+replicated, async_), both engines and fan-ins, and ω compression (topk,
+qsgd).  Not yet: the second-order workloads (``newton_sketch``,
+``double_ml``) and the multi-tenant cluster surface (``submit``,
+``run_all``, ``replay``, DAGs).
 """
 from __future__ import annotations
 

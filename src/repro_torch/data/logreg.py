@@ -51,12 +51,19 @@ def _gen_row_sparse(keys: tf.Key, d: int, k: int):
     kb, knu, kidx, kval = (tf.split_key(sub, j) for j in range(4))
     b = torch.where(tf.bernoulli_half(kb), 1.0, -1.0).to(torch.float32)
     nu = tf.uniform(knu) * b
-    shift = max(1, (d - 1).bit_length())
-    rank = (tf.mantissa(tf.random_bits(kidx, d)) << shift) | (
-        (1 << shift) - 1 - torch.arange(d, device=b.device))
-    idx = torch.topk(rank, k, dim=-1).indices
+    idx = top_k_indices(tf.random_bits(kidx, d), k)
     vals = nu[:, None] + tf.normal(kval, k)
     return idx, vals, b
+
+
+def top_k_indices(bits: torch.Tensor, k: int) -> torch.Tensor:
+    """``lax.top_k(uniform, k)[1]`` over the last axis of the uniforms the
+    32-bit draws ``bits`` give: ranked by value, ties to the lower index."""
+    d = bits.shape[-1]
+    shift = max(1, (d - 1).bit_length())
+    rank = (tf.mantissa(bits) << shift) | (
+        (1 << shift) - 1 - torch.arange(d, device=bits.device))
+    return torch.topk(rank, k, dim=-1).indices
 
 
 def worker_shard_sparse(cfg: LogRegConfig, w: int, n_workers: int,

@@ -111,6 +111,34 @@ def bernoulli_half(key: Key) -> torch.Tensor:
     return uniform(key) < 0.5
 
 
+def randint(key: Key, span: int, bits: int = 32) -> torch.Tensor:
+    """``jax.random.randint(key, (), 0, span)`` (scalar per key), drawn as
+    JAX's ``_randint`` draws it: two keys from ``split(key)``, one word of
+    ``bits`` random bits from each (high, low), and the value
+    ``(hi % span · m + lo % span) % span`` with m = (2**(bits/2) % span)²
+    % span, the remainder of the 2·bits-bit integer hi·2**bits + lo.
+
+    ``bits`` is the width of JAX's default int: 32, or 64 when
+    ``jax_enable_x64`` is on (a 64-bit word is ``(w0 << 32) | w1`` of the
+    hash, not their XOR).  For a span up to 2**16 no product of the
+    reference's unsigned arithmetic wraps, and the int64 words hold it."""
+    if bits not in (32, 64) or not 1 <= span <= 1 << 16:
+        raise ValueError(f"randint takes bits 32 or 64 and a span in "
+                         f"[1, 2**16], got {bits}, {span}")
+    keys = split(key, 2)
+    words = []
+    for j in range(2):
+        k0, k1 = split_key(keys, j)
+        zero = torch.zeros((), dtype=torch.int64, device=k0.device)
+        y0, y1 = threefry2x32((k0, k1), zero, zero)
+        # a 64-bit word held as its remainder: (y0·2**32 + y1) % span
+        words.append(y0 ^ y1 if bits == 32
+                     else ((y0 % span) * ((1 << 32) % span) + y1) % span)
+    hi, lo = words
+    mult = pow(1 << (bits // 2), 2, span)
+    return ((hi % span) * mult + lo % span) % span
+
+
 # Giles' single-precision erfinv, the polynomial XLA lowers erf_inv to.
 _ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
                -4.39150654e-06, 0.00021858087, -0.00125372503,

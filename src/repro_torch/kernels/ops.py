@@ -3,6 +3,8 @@
 Dispatch goes by the tensor's device and nothing else: a CPU tensor runs
 the plain version in ``ref.py``; a CUDA tensor launches the kernel, and a
 kernel that cannot build or launch raises.  Nothing falls back.
+``fused_softmax_vjp`` has no kernel, here as in the reference: it runs its
+plain version on either device.
 
 The margin wrappers take a leading worker axis: A (W, N, D), b and mask (W, N),
 x (W, D) give (loss (W,), grad (W, D)); the unbatched forms drop W.  Shards
@@ -51,6 +53,23 @@ def fused_svm_vjp(A, b, x, *, gamma: float, mask=None):
     """Smoothed-hinge twin of ``fused_logistic_vjp`` (``gamma`` the
     smoothing width).  Same shapes, batching and masking."""
     return _margin(A, b, x, mask, loss="hinge", gamma=float(gamma))
+
+
+def fused_softmax_vjp(A, y, x, *, n_classes: int, mask=None):
+    """Multinomial value+grad with the margin wrappers' contract: A (N, D),
+    y (N,) int labels, x the flattened (D·C,) variable, an optional row
+    mask; a leading worker axis batches (A (W, N, D), y/mask (W, N), x
+    (W, D·C) -> (loss (W,), grad (W, D·C))).
+
+    The reference has no Pallas body here: its wrapper runs the jnp oracle
+    in every mode (C is small and the (N, D) @ (D, C) pair needs no kernel
+    of its own).  So this runs the plain version, ``ref.softmax_vjp_ref``,
+    on CPU and CUDA tensors alike, by design and not as a fallback."""
+    if mask is None:
+        mask = torch.ones(A.shape[:-1], dtype=A.dtype, device=A.device)
+    X = x.reshape(x.shape[:-1] + (A.shape[-1], n_classes))
+    f, g = ref.softmax_vjp_ref(A, y, mask, X)
+    return f, g.reshape(x.shape)
 
 
 def fused_z_update(omega_bar, z_old, thr: float):

@@ -43,6 +43,20 @@ def svm_vjp_ref(a, b, mask, x, gamma: float):
     return loss, (c[..., None, :] @ a)[..., 0, :]
 
 
+def softmax_vjp_ref(a, y, mask, X):
+    """Multinomial value+grad (problems/softmax.py's loss): a (..., N, D),
+    y (..., N) int labels, mask (..., N), X (..., D, C) -> (loss (...),
+    grad (..., D, C)).  Masked rows contribute exactly zero to both."""
+    C = X.shape[-1]
+    logits = a @ X                                   # (..., N, C)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, y[..., None])[..., 0]
+    loss = torch.sum(mask * (lse - picked), dim=-1)
+    resid = mask[..., None] * (torch.softmax(logits, dim=-1)
+                               - torch.nn.functional.one_hot(y, C).to(X.dtype))
+    return loss, a.transpose(-1, -2) @ resid
+
+
 def soft_threshold_ref(omega, z_old, thr):
     """omega, z_old (D,); thr a float32 scalar ->
     (z_new (D,), ||z_new - z_old||² (), nnz(z_new) () int64)."""

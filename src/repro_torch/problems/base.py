@@ -144,8 +144,26 @@ def carry_shards(problem, shards: Dict[Tuple[int, int], Tuple]) -> None:
                 else t.to(problem.dtype))
     for key, shard in shards.items():
         problem._shard_cache[key] = tuple(leaf(a) for a in shard)
+    # whatever was built from the old shards goes: stacked batches, dense
+    # staging, lasso's Gram factors
     problem._batch_cache = None
     problem._kernel_batch_cache = None
+    getattr(problem, "_factor_cache", {}).clear()
+
+
+def dense_kernel_batch(problem, n_workers: int) -> Tuple:
+    """The dense twin of ``batch_shards`` for workloads on sparse
+    gather-format shards (idx, vals, b) — logreg and svm: the margin kernel
+    streams dense rows, so the stacked batch is scattered into (W, Nmax, d)
+    rows on the device once per fleet size (cached; a new W re-densifies).
+    Returns ((A, b), mask)."""
+    if problem._kernel_batch_cache is None:
+        problem._kernel_batch_cache = {}
+    if n_workers not in problem._kernel_batch_cache:
+        (idx, vals, b), mask = problem.batch_shards(n_workers)
+        dense = densify_sparse_rows(idx, vals, problem.n_features)
+        problem._kernel_batch_cache[n_workers] = ((dense, b), mask)
+    return problem._kernel_batch_cache[n_workers]
 
 
 # ---------------------------------------------------------------------------

@@ -87,16 +87,9 @@ class LogRegProblem(base.BatchedShardProblem):
 
     # -- fused-kernel path (SchedulerConfig(kernel="cuda")) -----------------
     def kernel_batch_shards(self, n_workers: int):
-        """Dense twin of ``batch_shards`` for the margin kernel: the stacked
-        sparse batch is scattered into (W, Nmax, d) rows on the device once
-        per fleet size (cached; a new W re-densifies)."""
-        if self._kernel_batch_cache is None:
-            self._kernel_batch_cache = {}
-        if n_workers not in self._kernel_batch_cache:
-            (idx, vals, b), mask = self.batch_shards(n_workers)
-            dense = base.densify_sparse_rows(idx, vals, self.cfg.n_features)
-            self._kernel_batch_cache[n_workers] = ((dense, b), mask)
-        return self._kernel_batch_cache[n_workers]
+        """Dense twin of ``batch_shards`` for the margin kernel (see
+        ``base.dense_kernel_batch``)."""
+        return base.dense_kernel_batch(self, n_workers)
 
     def _masked_kernel_loss_value_and_grad(self, batch, mask):
         A, b = batch

@@ -1,36 +1,45 @@
 """Algorithm 1 (the paper's scheduler), event-driven — the PyTorch
-counterpart of ``repro.runtime.scheduler`` for the synchronous family.
+counterpart of ``repro.runtime.scheduler``.
 
 The scheduler drives a ``LambdaPool`` of simulated serverless workers
 running REAL ADMM math on real shards; time and dollars come from the
 numpy simulators (``pool``, ``reduce``, ``billing``).  Per round it
 reproduces the paper's measurement set (idle / compute / delay per worker,
-cold starts, respawns) in three barrier modes:
+cold starts, respawns) in four barrier modes:
 
   * ``sync``         — full barrier (the paper's setting);
   * ``drop_slowest`` — K-of-W partial barrier with a stale ω table;
-  * ``replicated``   — r workers per shard group, first responder wins.
+  * ``replicated``   — r workers per shard group, first responder wins;
+  * ``async_``       — bounded-staleness async ADMM: the master updates z
+                       every ``async_batch`` arrivals, at a fixed rho; a
+                       worker whose z is more than ``staleness_bound``
+                       versions old blocks until the next rebroadcast.
 
 Engines: ``engine="loop"`` solves one worker at a time; ``"batched"``
 solves all W as lanes of one FISTA (``problems.BatchedShardProblem``).
-Kernels: ``kernel="torch"`` is plain PyTorch everywhere; ``"cuda"`` routes
-the batched engine's loss+grad through the fused margin kernel and the
-master's l1 z-update through the fused soft-threshold kernel
-(``repro_torch.kernels.ops``) — on a CPU tensor those wrappers run their
-plain versions.
+``async_`` paces itself per arrival, so it solves one worker at a time
+whatever the engine.  Kernels: ``kernel="torch"`` is plain PyTorch
+everywhere; ``"cuda"`` routes the batched engine's loss+grad through the
+fused margin kernel and the master's l1 z-update through the fused
+soft-threshold kernel (``repro_torch.kernels.ops``) — on a CPU tensor those
+wrappers run their plain versions.  ω messages may be compressed
+(``compress="topk"|"qsgd"``, ``optim.compression.OmegaCodec``): the codec
+shrinks the modelled wire bytes and the master averages the lossy ω.
 
 Precision follows the reference step by step: q is a float32 sum widened
 to float64; the plain z-update's dual residual is a float32 product, the
 fused one a host float64 product; rho is rounded through float32 by
 ``new_penalty``.
 
-Not ported yet, and refused with ``NotImplementedError``: ``async_``,
-compression other than "none", checkpoints, second-order problems and the
-float64 kernel path (ROADMAP.md, Queue 1).
+``checkpoint_every`` and ``checkpoint_dir`` are accepted and not read, as
+in the reference, whose scheduler never reads them (only its LM trainer
+writes checkpoints).  Second-order problems and the float64 kernel path
+are not ported yet and raise ``NotImplementedError`` (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
 import dataclasses
+import heapq
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -52,23 +61,29 @@ _WAITS = "not ported yet; see ROADMAP.md, Queue 1, {!r}"
 @dataclasses.dataclass(frozen=True)
 class SchedulerConfig:
     n_workers: int = 16
-    mode: str = "sync"            # sync | drop_slowest | replicated
+    mode: str = "sync"            # sync | drop_slowest | replicated | async_
     engine: str = "loop"          # loop | batched
     # "torch": plain PyTorch everywhere; "cuda": the fused kernels
     kernel: str = "torch"
     drop_frac: float = 0.1        # drop_slowest: fraction not waited for
     replication: int = 2          # replicated: r
+    async_batch: int = 4          # async_: S arrivals per z-update
+    staleness_bound: int = 4      # async_: max z-version lag
     admm: AdmmOptions = AdmmOptions()
     pool: PoolConfig = PoolConfig()
     fanin: str = "flat"           # flat | tree
     tree: TreeConfig = TreeConfig()
-    compress: str = "none"        # only "none" is ported
+    compress: str = "none"        # none | topk | qsgd
+    topk_frac: float = 0.05       # topk: fraction of d kept per message
+    qsgd_bits: int = 4            # qsgd: bits per coordinate
     # decision-vector size for the WIRE/cost model only (defaults to d)
     wire_d: Optional[int] = None
     respawn_before_deadline_s: float = 30.0
     # timing: use the round-median inner-iteration count per worker
     iter_smoothing: bool = False
-    checkpoint_every: int = 0     # rounds; only 0 (off) is ported
+    # accepted and not read (module docstring)
+    checkpoint_every: int = 0     # rounds; 0 = off
+    checkpoint_dir: Optional[str] = None
     billing: BillingConfig = BillingConfig()
     autoscale: AutoscaleConfig = AutoscaleConfig()
 
@@ -99,19 +114,8 @@ def _check_supported(problem, cfg: SchedulerConfig, dtype) -> None:
         raise NotImplementedError(
             "second-order problems are " + _WAITS.format(
                 "The second-order path"))
-    if cfg.mode == "async_":
-        raise NotImplementedError("mode='async_' is " + _WAITS.format(
-            "Scheduler: async, compression, checkpoints"))
-    if cfg.mode not in ("sync", "drop_slowest", "replicated"):
+    if cfg.mode not in ("sync", "drop_slowest", "replicated", "async_"):
         raise ValueError(f"unknown mode {cfg.mode!r}")
-    if cfg.compress != "none":
-        raise NotImplementedError(f"compress={cfg.compress!r} is "
-                                  + _WAITS.format(
-                                      "Scheduler: async, compression, "
-                                      "checkpoints"))
-    if cfg.checkpoint_every > 0:
-        raise NotImplementedError("checkpoints are " + _WAITS.format(
-            "Scheduler: async, compression, checkpoints"))
     if cfg.kernel not in ("torch", "cuda"):
         raise ValueError(f"kernel must be 'torch' or 'cuda', "
                          f"got {cfg.kernel!r}")
@@ -167,9 +171,14 @@ class Scheduler:
         self._engine_batched = cfg.engine == "batched"
         self._kernel_cuda = cfg.kernel == "cuda"
         self._z_nnz = -1
-        self.codec = OmegaCodec(cfg.compress, d)
+        # the paper sends (q, ω), d+1 f32 dense; the codec shrinks it (and
+        # lossy-codes the ω the master sees) when compression is on
+        self.codec = OmegaCodec(cfg.compress, d, topk_frac=cfg.topk_frac,
+                                qsgd_bits=cfg.qsgd_bits)
         self.wire_d = cfg.wire_d or d
-        self.msg_bytes = message_bytes(cfg.compress, self.wire_d)
+        self.msg_bytes = message_bytes(cfg.compress, self.wire_d,
+                                       topk_frac=cfg.topk_frac,
+                                       qsgd_bits=cfg.qsgd_bits)
         self.meter = BillingMeter(cfg.billing)
         self._billed_spawns = 0
         self.autoscaler: Optional[Autoscaler] = None
@@ -259,8 +268,14 @@ class Scheduler:
         else:
             xs_new, iters = self.problem.solve_all(self.x, u_new, self.z,
                                                    self.rho)
+        omegas = xs_new + u_new
+        if self.codec.method != "none":
+            # the codec is stateful per logical slot, so compression
+            # encodes slot by slot, as the reference does
+            omegas = torch.stack([self.codec.encode(lw, omegas[lw])
+                                  for lw in range(self.n_logical)])
         self._batched_xu = (xs_new, u_new)
-        return q, np.asarray(iters, np.int64), xs_new + u_new, extras
+        return q, np.asarray(iters, np.int64), omegas, extras
 
     def _master_z_update(self, omega_bar: torch.Tensor, q_sum: float,
                          n_eff: int, adapt_rho: bool = True):
@@ -403,11 +418,114 @@ class Scheduler:
         return m
 
     # ------------------------------------------------------------------
+    def run_async(self, max_updates: int,
+                  on_round: Optional[Callable] = None) -> List[RoundMetrics]:
+        """Bounded-staleness async ADMM: the master updates z every
+        ``async_batch`` arrivals; a worker more than ``staleness_bound``
+        z-versions behind blocks until the next update.  ``on_round`` fires
+        once per z-update.  Arrivals pop from a heap of (time, wid, q), so
+        ties go to the lower wid; the pool's RNG is drawn inside each
+        launch, in launch order, as the reference draws it."""
+        cfg = self.cfg
+        W = cfg.n_workers
+        z_version = 0
+        worker_version = np.zeros(W, np.int64)
+        pending: List[Tuple[float, int, float]] = []
+        since_update = 0
+
+        def launch(wid: int, at: float):
+            lw = self._logical(wid)
+            self._round_results = {}
+            omega, q, it, extra = self._worker_pass(wid)
+            self._commit_xu(lw)
+            tc = self.pool.compute_time(
+                self.pool.workers[wid], it,
+                self.problem.n_samples(lw, self.n_logical))
+            rx = self.pool.comm_time(4 * self.wire_d)   # dense z downlink
+            tx = self.pool.comm_time(self.msg_bytes)    # compressed ω up
+            arrive = at + extra + rx + tc + tx
+            heapq.heappush(pending, (arrive, wid, float(q)))
+            self._async_omega[wid] = omega
+            self._async_tcomp[wid] = tc
+            self._async_iters[wid] = it
+            # one invocation: billed for its active span and its wire
+            # bytes; a respawn's init (extra) is _bill_spawns' to bill
+            self.meter.record_duration(arrive - at - extra)
+            self.meter.record_bytes(self.msg_bytes + 4 * self.wire_d)
+
+        self._async_omega: Dict[int, torch.Tensor] = {}
+        self._async_tcomp: Dict[int, float] = {}
+        self._async_iters: Dict[int, int] = {}
+        blocked: List[int] = []
+        master_billed_to = self.sim_time
+
+        for wid in range(W):
+            launch(wid, self.pool.workers[wid].ready_at)
+
+        updates = 0
+        while updates < max_updates and pending:
+            arrive, wid, q = heapq.heappop(pending)
+            self.sim_time = max(self.sim_time, arrive)
+            # a copy into the table: no row aliases a worker's ω
+            self.omega_table[wid] = self._async_omega[wid]
+            self.q_table[wid] = q
+            since_update += 1
+
+            if since_update >= cfg.async_batch:
+                since_update = 0
+                omega_bar = torch.mean(self.omega_table, dim=0)
+                # a FIXED penalty: the bounded-staleness analyses assume a
+                # constant rho, and residual balancing would act on a
+                # stale r against a per-micro-update s
+                r_norm, s_norm = self._master_z_update(
+                    omega_bar, float(self.q_table.sum()), W,
+                    adapt_rho=False)
+                z_version += 1
+                updates += 1
+                self.k += 1
+                self._bill_spawns()
+                self.meter.record_master(self.sim_time - master_billed_to)
+                master_billed_to = self.sim_time
+                t_comp = np.array([self._async_tcomp.get(i, 0.0)
+                                   for i in range(W)])
+                m = RoundMetrics(
+                    k=self.k, sim_time=self.sim_time, r_norm=r_norm,
+                    s_norm=s_norm, rho=self.rho, t_comp=t_comp,
+                    t_comm=np.zeros(W), t_idle=np.zeros(W),
+                    inner_iters=np.array([self._async_iters.get(i, 0)
+                                          for i in range(W)]),
+                    n_respawns=self.n_respawns,
+                    slowest10=np.zeros(W, bool),
+                    cost_usd=self.meter.total_usd(), n_workers=W,
+                    z_nnz=self._z_nnz)
+                self.history.append(m)
+                if on_round:
+                    on_round(m)
+                # the z-update is the rebroadcast: every blocked worker
+                # takes the fresh z and relaunches at the current version
+                for bw in blocked:
+                    worker_version[bw] = z_version
+                    launch(bw, self.sim_time)
+                blocked.clear()
+
+            # relaunch this worker against the current z
+            if z_version - worker_version[wid] > cfg.staleness_bound:
+                blocked.append(wid)
+            else:
+                worker_version[wid] = z_version
+                launch(wid, max(arrive, self.sim_time))
+        return self.history
+
+    # ------------------------------------------------------------------
     def step(self, on_round: Optional[Callable] = None
              ) -> Tuple[RoundMetrics, bool]:
-        """Drive ONE round and what hangs off it — the callback, the
-        convergence check, the autoscaler.  Returns (metrics, done)."""
+        """Drive ONE synchronous-family round and what hangs off it — the
+        callback, the convergence check, the autoscaler.  Returns
+        (metrics, done)."""
         cfg = self.cfg
+        if cfg.mode == "async_":
+            raise ValueError("step() drives the synchronous-family modes; "
+                             "async_ paces itself per arrival (run_async)")
         if cfg.autoscale.policy != "off" and self.autoscaler is None:
             self.autoscaler = Autoscaler(cfg.autoscale, quantum=self.repl)
         m = self.run_round()
@@ -429,6 +547,9 @@ class Scheduler:
     def solve(self, *, max_rounds: Optional[int] = None,
               on_round: Optional[Callable] = None) -> torch.Tensor:
         K = max_rounds or self.cfg.admm.max_iters
+        if self.cfg.mode == "async_":
+            self.run_async(K, on_round=on_round)
+            return self.z
         for _ in range(K):
             _, done = self.step(on_round)
             if done:

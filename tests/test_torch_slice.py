@@ -47,6 +47,7 @@ torch = pytest.importorskip("torch")
 from repro import api as j_api                                # noqa: E402
 from repro import problems as j_problems                      # noqa: E402
 from repro.core.admm import AdmmOptions as JAdmm              # noqa: E402
+from repro.runtime.pool import PoolConfig as JPool            # noqa: E402
 from repro.runtime.scheduler import SchedulerConfig as JCfg   # noqa: E402
 from repro_torch import api as t_api                          # noqa: E402
 from repro_torch import problems as t_problems                # noqa: E402
@@ -56,6 +57,7 @@ from repro_torch.data import threefry as tf                   # noqa: E402
 from repro_torch.data.logreg import shard_rows                # noqa: E402
 from repro_torch.kernels import logistic_vjp as t_lv          # noqa: E402
 from repro_torch.kernels import soft_threshold as t_st        # noqa: E402
+from repro_torch.runtime.pool import PoolConfig               # noqa: E402
 from repro_torch.runtime.scheduler import SchedulerConfig     # noqa: E402
 from test_torch_data import jax_config                        # noqa: E402
 
@@ -80,17 +82,30 @@ def _pallas_mode(kernel: str):
             os.environ["REPRO_PALLAS"] = old
 
 
-def jax_run(kw, W, engine, kernel, *, mode="sync", fanin="flat",
-            rounds=ROUNDS, x64=False, rescale_to=None):
-    """The reference run; returns (trace, z, its shards as numpy)."""
+def _cfg_extras(cfg, pool_cls):
+    """Scheduler fields beyond the ones named below, for either package:
+    ``pool_seed`` becomes that package's ``PoolConfig(seed=...)``; the rest
+    (compress, async_batch, ...) pass as they are."""
+    cfg = dict(cfg)
+    seed = cfg.pop("pool_seed", None)
+    if seed is not None:
+        cfg["pool"] = pool_cls(seed=seed)
+    return cfg
+
+
+def jax_run(kw, W, engine, kernel, *, problem="logreg", mode="sync",
+            fanin="flat", rounds=ROUNDS, x64=False, rescale_to=None, **cfg):
+    """The reference run of the registered ``problem``; returns (trace, z,
+    its shards as numpy)."""
     with jax_config(jax_threefry_partitionable=True,
                     jax_enable_x64=x64), _pallas_mode(kernel):
-        p = j_problems.make("logreg", **kw)
+        p = j_problems.make(problem, **kw)
         spec = j_api.ExperimentSpec(
-            problem="logreg", problem_kwargs=kw,
+            problem=problem, problem_kwargs=kw,
             scheduler=JCfg(n_workers=W, mode=mode, engine=engine,
                            kernel=kernel, fanin=fanin, replication=2,
-                           admm=JAdmm(max_iters=rounds)),
+                           admm=JAdmm(max_iters=rounds),
+                           **_cfg_extras(cfg, JPool)),
             max_rounds=rounds)
         if rescale_to is None:
             res = j_api.run(spec, problem=p)
@@ -104,16 +119,18 @@ def jax_run(kw, W, engine, kernel, *, mode="sync", fanin="flat",
     return trace, z, shards
 
 
-def port_run(kw, W, engine, kernel, shards=None, *, mode="sync",
-             fanin="flat", rounds=ROUNDS, rescale_to=None):
-    p = t_problems.make("logreg", device="cpu", **kw)
+def port_run(kw, W, engine, kernel, shards=None, *, problem="logreg",
+             mode="sync", fanin="flat", rounds=ROUNDS, rescale_to=None,
+             **cfg):
+    p = t_problems.make(problem, device="cpu", **kw)
     if shards is not None:
         t_problems.carry_shards(p, shards)
     spec = t_api.ExperimentSpec(
-        problem="logreg", problem_kwargs=kw,
+        problem=problem, problem_kwargs=kw,
         scheduler=SchedulerConfig(n_workers=W, mode=mode, engine=engine,
                                   kernel=kernel, fanin=fanin, replication=2,
-                                  admm=AdmmOptions(max_iters=rounds)),
+                                  admm=AdmmOptions(max_iters=rounds),
+                                  **_cfg_extras(cfg, PoolConfig)),
         max_rounds=rounds)
     if rescale_to is None:
         res = t_api.run(spec, problem=p)
@@ -293,21 +310,26 @@ def test_fista_shard_scaffolding_engines_agree():
 
 
 # ---------------------------------------------------------------------------
-# what the slice refuses
+# what the port refuses
 # ---------------------------------------------------------------------------
+
+F64 = dict(dtype="float64")
 
 
 @pytest.mark.parametrize("cfg,kw,err", [
-    (dict(mode="async_"), {}, NotImplementedError),
-    (dict(compress="topk"), {}, NotImplementedError),
-    (dict(compress="qsgd"), {}, NotImplementedError),
-    (dict(checkpoint_every=2), {}, NotImplementedError),
-    (dict(kernel="cuda", engine="batched"), dict(dtype="float64"),
+    # the float64 kernel path stays refused in every mode
+    (dict(kernel="cuda", mode="async_"), F64, NotImplementedError),
+    (dict(kernel="cuda", compress="topk"), F64, NotImplementedError),
+    (dict(kernel="cuda", compress="qsgd", engine="batched"), F64,
      NotImplementedError),
+    (dict(kernel="cuda", checkpoint_every=2), F64, NotImplementedError),
+    (dict(kernel="cuda", engine="batched"), F64, NotImplementedError),
     (dict(kernel="pallas"), {}, ValueError),
     (dict(kernel="xla"), {}, ValueError),
     (dict(engine="vmap"), {}, ValueError),
     (dict(fanin="ring"), {}, ValueError),
+    (dict(mode="bulk"), {}, ValueError),
+    (dict(compress="gzip"), {}, ValueError),
 ])
 def test_unported_options_raise(cfg, kw, err):
     p = t_problems.make("logreg", device="cpu", n_samples=40, n_features=8,
@@ -315,6 +337,33 @@ def test_unported_options_raise(cfg, kw, err):
     with pytest.raises(err):
         t_api.build(t_api.ExperimentSpec(
             scheduler=SchedulerConfig(n_workers=2, **cfg)), problem=p)
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(mode="async_"), dict(compress="topk"),
+    dict(compress="qsgd", engine="batched"),
+    dict(checkpoint_every=2, checkpoint_dir="ckpt"),
+])
+def test_ported_modes_run(cfg, tmp_path):
+    """Each option the first slices refused now runs; checkpoint fields
+    are accepted and write nothing, as in the reference's scheduler."""
+    if "checkpoint_dir" in cfg:
+        cfg = dict(cfg, checkpoint_dir=str(tmp_path / cfg["checkpoint_dir"]))
+    p = t_problems.make("logreg", device="cpu", n_samples=40, n_features=8)
+    res = t_api.run(t_api.ExperimentSpec(
+        scheduler=SchedulerConfig(n_workers=2, **cfg), max_rounds=2),
+        problem=p)
+    assert len(res.trace) == 2 and np.all(np.isfinite(res.z))
+    assert not any(tmp_path.iterdir())
+
+
+def test_second_order_problems_raise():
+    class _Newton:
+        second_order = True
+        n_features = 4
+        dtype = torch.float32
+    with pytest.raises(NotImplementedError, match="second-order"):
+        t_api.Scheduler(_Newton(), SchedulerConfig(n_workers=2))
 
 
 def test_entry_points_default_to_the_card():
