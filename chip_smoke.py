@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # every phase, as a check runs it
     python3 chip_smoke.py --phases 1,2,5  # the kernels and serving only
     python3 chip_smoke.py --phases 1,2,6  # the kernels and svm at size
+    python3 chip_smoke.py --phases 1,2,7  # the kernels and the cluster
     python3 chip_smoke.py --src OTHER/src # time another checkout's ADMM
                                           # kernels, nothing else
 
@@ -26,12 +27,20 @@ caught):
      float32 (both engines) against that float64 run; then svm, lasso,
      softmax and logreg_l2 at the engine suite's sizes, and logreg and
      svm under async_, topk and qsgd, each on the card and on the CPU;
+     then, each on the card and on the CPU in float64: the engine
+     instance with kernel="cuda" (the margin kernel in float32 under a
+     float64 FISTA) against kernel="torch", a mixed cluster (4 lasso and
+     2 logreg jobs of two tenants, fifo and drf, heap and scan: equal
+     reports), double_ml (n=2048, p=32, K=4) under reservation="phase"
+     and "peak" (theta-hat), and a 200-job Poisson replay from
+     runtime.loadgen (equal reports);
   4. the logreg main path at the paper's size: N=600 000, d=10 000, W=64,
      the batched engine with kernel="cuda", through ``api.run``, with the
      margin and z-update kernels' launch counts read around that run;
      then the same rounds twice with kernel="torch" (the plain sparse
-     path) as the witness, and a control with the last 1% of each lane's
-     rows masked out;
+     path, summed in a fixed order: its two runs must agree bit for bit)
+     as the witness, and a control with the last 1% of each lane's rows
+     masked out;
   5. serving: reduced granite_8b in float32 (2 layers, full and windowed
      attention) on the card against the same run on the CPU, then
      granite_8b at full width and depth in bfloat16 through
@@ -43,8 +52,19 @@ caught):
      hinge, through ``api.run`` on the margin kernel's hinge instantiation
      and the z-update, with its witness and control as in phase 4, and
      the peak device memory;
-then the kernels line {"kernels": [...]} (when phases 2, 4, 5 and 6 ran;
-each entry names the kernel's design in "body") and the last line
+  7. the multi-tenant cluster at the paper's size: four jobs of two
+     tenants at t = 0 on one Cluster (policy drf, 2 job slots, 128
+     workers, one shared warm pool): alice runs phase 4's logreg spec
+     twice, bob phase 6's svm spec twice, each job on a pool seed of its
+     own, over one logreg and one svm instance shared by each tenant's
+     jobs (svm on logreg's rows); under the heap engine, then the scan
+     engine, with each job's rounds held bit for bit to its solo run
+     (phase 4's or 6's when they ran, else run here), heap's report to
+     scan's, the margin launches to the sum of the jobs' own, and the
+     peak device memory under 80 GB;
+then the kernels line {"kernels": [...]} (when phases 2, 4, 5, 6 and 7
+ran; each entry names the kernel's design in "body" and its launches on
+each main path in "launches_by_phase") and the last line
 {"ok": true, "device": {...}}.
 
 It imports torch and the port only.  Without a CUDA device, or outside a
@@ -107,8 +127,9 @@ CONTROL_FRAC = 0.01
 # smoothed hinge of width 0.5 (src/repro_torch/problems/svm.py), same W,
 # rounds and FISTA options as phase 4.  Its witness readings on an "NVIDIA
 # H100 80GB HBM3, 700.00 W" support the same limits (PERF.md): sound
-# 4.8e-5 to 3.1e-4 relative and 0.05 inner_mean, the witness's own
-# spread 9.9e-5 to 1.8e-4 and 0.02-0.03, the control 8.2e-3 and 3.0
+# 4.8e-5 to 3.1e-4 relative and 0.05 inner_mean, the control 8.2e-3 and
+# 3.0.  The witness sums in a fixed order, so its two runs in a phase must
+# agree bit for bit (a spread of exactly 0)
 SVM_KW = dict(n_samples=600_000, n_features=10_000, density=0.001,
               lam1=1.0, smoothing=0.5, fista=PAPER_KW["fista"])
 # the paper-size paths: phase -> (problem, kwargs, margin loss)
@@ -875,7 +896,9 @@ def rsr(trace):
     return [(r["r_norm"], r["s_norm"], r["rho"]) for r in trace]
 
 
-def hold(name, got, want, rtol, cols=(0, 1, 2)):
+def hold(name, got, want, rtol, cols=(0, 1, 2), floor=1e-9):
+    """Each column of each round within ``rtol`` relative, or within the
+    absolute ``floor``; returns the worst relative gap."""
     if len(got) != len(want):
         fail(f"{name}: {len(got)} rounds against {len(want)}")
     worst = 0.0
@@ -883,9 +906,9 @@ def hold(name, got, want, rtol, cols=(0, 1, 2)):
         for c in cols:
             diff = abs(row_g[c] - row_w[c])
             gap = diff / max(abs(row_w[c]), 1e-9)
-            if not math.isfinite(row_g[c]) or (gap > rtol and diff > 1e-9):
+            if not math.isfinite(row_g[c]) or (gap > rtol and diff > floor):
                 fail(f"{name}: round {k} column {c}: {row_g[c]!r} vs "
-                     f"{row_w[c]!r} (rtol {rtol:g})")
+                     f"{row_w[c]!r} (rtol {rtol:g}, floor {floor:.2e})")
             worst = max(worst, gap)
     return worst
 
@@ -996,19 +1019,214 @@ def phase_small_modes(torch, api, SchedulerConfig, AdmmOptions, PoolConfig,
         f"{dict(st.LAUNCHES)}")
 
 
+# phase 3's cluster cases, float64: tests/test_cluster.py's lasso instance
+# (n=256, d=32) for four W=4 jobs of two tenants beside two logreg jobs on
+# the batched engine; double_ml at (n, p, K) = (2048, 32, 4); a Poisson
+# replay of 200 jobs from runtime.loadgen (its default templates in
+# float64, 8 rounds at most a job)
+CLUSTER_KW = dict(n_samples=256, n_features=32, dtype="float64")
+DML_KW = dict(n_samples=2048, n_features=32, n_folds=4)
+# double_ml draws its rows in float32 on either device (the reference does
+# too; a float64 problem widens them), and cuBLAS and the CPU's BLAS sum
+# X @ m in other orders: theta-hat card against CPU is held at the CPU
+# tests' limit against the reference (tests/test_torch_phases.py)
+DML_THETA_RTOL = 1e-4
+REPLAY_LOAD = dict(model="poisson", jobs=200, horizon_s=1200.0, seed=7,
+                   rounds_max=8)
+# a cluster job's residuals card against CPU.  A float64 lasso or logreg
+# problem draws its rows in float32 and widens them (as the reference
+# does), and lasso's targets b = A x_true + noise are float32 products
+# that cuBLAS and the CPU's BLAS sum in other orders, so the two devices
+# solve data a few float32 ulp apart; a converging job's s_norm, rho ·
+# sqrt(W) · ||z - z_prev||, a difference of near-equal vectors, magnifies
+# that.  On an "NVIDIA H100 80GB HBM3, 700.00 W": 4.4e-6 relative on a
+# lasso job's round-5 s_norm of 2.7e-4 (mixed cluster), 1.6e-5 on a
+# replayed lasso job's round-8 s_norm of 1.3e-2.  So a residual is held
+# at CLUSTER_RTOL relative, or within TRACE_FLOOR of its trace's largest
+# value; the reports, which follow the inner counts, are held equal
+CLUSTER_RTOL = 1e-4
+TRACE_FLOOR = 1e-8
+
+
+def cluster_fingerprint(res):
+    """The report and every job's summary: what two runs of one batch must
+    share exactly."""
+    return (res.report.to_dict(),
+            [j.summary() for j in sorted(res.jobs, key=lambda j: j.job_id)])
+
+
+def hold_cluster(name, got, want, rtol=CLUSTER_RTOL):
+    """Card against CPU: the reports and summaries equal, every done job's
+    trace within ``rtol`` (or ``TRACE_FLOOR`` of the trace's largest
+    value) with equal inner counts.  Returns the worst relative trace
+    gap."""
+    if cluster_fingerprint(got) != cluster_fingerprint(want):
+        fail(f"{name}: the card's cluster report differs from the CPU's")
+    worst = 0.0
+    for a, b in zip(got.jobs, want.jobs):
+        if a.state != "done":
+            continue
+        want_rows = rsr(b.result.trace)
+        scale = max(abs(v) for row in want_rows for v in row)
+        worst = max(worst, hold(f"{name} job {a.job_id}",
+                                rsr(a.result.trace), want_rows, rtol,
+                                floor=TRACE_FLOOR * scale))
+        if ([r["inner_mean"] for r in a.result.trace]
+                != [r["inner_mean"] for r in b.result.trace]):
+            fail(f"{name} job {a.job_id}: inner iterations differ from the "
+                 f"CPU's")
+    return worst
+
+
+def float64_dag(rt, dag):
+    """``dag`` with every stage's problem in float64."""
+    return rt.DagSpec(stages=tuple(dataclasses.replace(
+        s, spec=dataclasses.replace(s.spec, problem_kwargs={
+            **s.spec.problem_kwargs, "dtype": "float64"}))
+        for s in dag.stages), label=dag.label)
+
+
+def phase_small_cluster(torch, api, problems, rt, AdmmOptions, lv, st):
+    """The float64 kernel path, a mixed cluster, double_ml and a replay,
+    each on the card and on the CPU."""
+    args = (api, rt.SchedulerConfig, AdmmOptions, rt.PoolConfig)
+    f64 = dict(ENGINE_KW, dtype="float64")
+    lv.reset_launches()
+    st.reset_launches()
+    card = small_run(*args, f64, ENGINE_W, ENGINE_ROUNDS, "batched", "cuda",
+                     "cuda")
+    n_margin, n_z = lv.LAUNCHES["logistic"], st.LAUNCHES["soft_threshold"]
+    cpu = small_run(*args, f64, ENGINE_W, ENGINE_ROUNDS, "batched", "torch",
+                    "cpu")
+    g1 = hold("engine instance float64 kernel=cuda (card) vs kernel=torch "
+              "(CPU)", rsr(card.trace), rsr(cpu.trace), ANCHOR_RTOL)
+    if n_margin == 0 or n_z != 0 or any(r["z_nnz"] != -1
+                                        for r in card.trace):
+        fail(f"float64 kernel=cuda: {n_margin} margin launches (want > 0) "
+             f"and {n_z} z-update launches (want 0: the plain float64 prox)")
+    say(f"[3] engine instance in float64 with kernel=\"cuda\" on the card "
+        f"(the margin kernel in float32, {n_margin} launches; the plain "
+        f"float64 z-update) vs kernel=\"torch\" on the CPU: {g1:.2e} (rtol "
+        f"{ANCHOR_RTOL:g})")
+
+    kws = {"lasso": CLUSTER_KW, "logreg": dict(CLUSTER_KW, density=0.2)}
+
+    def mix(device, policy, engine):
+        probs = {name: problems.make(name, device=device, **kw)
+                 for name, kw in kws.items()}
+        c = rt.Cluster(rt.ClusterConfig(policy=policy, engine=engine,
+                                        max_concurrent_jobs=2,
+                                        max_active_workers=8), device=device)
+        jobs = [("lasso", i, "loop") for i in range(4)] + [
+            ("logreg", 10 + i, "batched") for i in range(2)]
+        for name, seed, engine_ in jobs:
+            c.submit(api.ExperimentSpec(
+                problem=name, problem_kwargs=kws[name],
+                scheduler=rt.SchedulerConfig(
+                    n_workers=4, engine=engine_,
+                    admm=AdmmOptions(max_iters=5),
+                    pool=rt.PoolConfig(seed=seed,
+                                       provider=rt.ProviderConfig())),
+                max_rounds=5), tenant=f"t{seed % 2}", problem=probs[name])
+        return c.run_all()
+
+    worst = 0.0
+    for policy in ("fifo", "drf"):
+        runs = {(dev, eng): mix(dev, policy, eng)
+                for dev in ("cuda", "cpu") for eng in ("heap", "scan")}
+        for eng in ("heap", "scan"):
+            worst = max(worst, hold_cluster(
+                f"mixed cluster {policy}/{eng}", runs["cuda", eng],
+                runs["cpu", eng]))
+        if (cluster_fingerprint(runs["cuda", "heap"])
+                != cluster_fingerprint(runs["cuda", "scan"])):
+            fail(f"mixed cluster {policy}: heap and scan reports differ")
+    rep = runs["cuda", "heap"].report
+    say(f"[3] mixed cluster (4 lasso + 2 logreg jobs, 2 tenants, float64), "
+        f"fifo and drf, heap and scan: card reports equal the CPU's and "
+        f"heap equals scan; traces {worst:.2e} apart (rtol "
+        f"{CLUSTER_RTOL:g}, equal inner counts); drf p50 "
+        f"{rep.p50_latency_s:.3f} s, warm-hit "
+        f"rate {rep.warm_hit_rate:.3f}")
+
+    thetas = {}
+    for device in ("cuda", "cpu"):
+        for reservation in rt.cluster.RESERVATIONS:
+            c = rt.Cluster(rt.ClusterConfig(reservation=reservation),
+                           device=device)
+            h = api.submit_dag(float64_dag(rt, problems.double_ml_dag(
+                **DML_KW)), cluster=c, tenant="dml")
+            res = c.run_all()
+            if h.state != "done":
+                fail(f"double_ml {reservation} on {device}: DAG {h.state}")
+            thetas[device, reservation] = (
+                float(h.stage_results["combine"].z[0]),
+                res.report.makespan_s)
+    for device in ("cuda", "cpu"):
+        if thetas[device, "phase"][0] != thetas[device, "peak"][0]:
+            fail(f"double_ml on {device}: theta-hat differs between the "
+                 f"reservations: {thetas[device, 'phase'][0]!r} vs "
+                 f"{thetas[device, 'peak'][0]!r}")
+    gap = abs(thetas["cuda", "phase"][0] - thetas["cpu", "phase"][0])
+    theta = thetas["cpu", "phase"][0]
+    if not gap <= DML_THETA_RTOL * abs(theta):
+        fail(f"double_ml: theta-hat on the card {thetas['cuda', 'phase'][0]!r}"
+             f" vs the CPU {theta!r}")
+    say(f"[3] double_ml (n={DML_KW['n_samples']}, p={DML_KW['n_features']}, "
+        f"K={DML_KW['n_folds']}, float64 stages): theta-hat "
+        f"{thetas['cuda', 'phase'][0]:.9f} on the card, {theta:.9f} on the "
+        f"CPU ({gap / abs(theta):.2e} relative, rtol {DML_THETA_RTOL:g}), "
+        f"the same under reservation=phase and peak; makespan phase "
+        f"{thetas['cuda', 'phase'][1]:.2f} s, peak "
+        f"{thetas['cuda', 'peak'][1]:.2f} s (simulated)")
+
+    templates = {name: dict(t, problem_kwargs=dict(t["problem_kwargs"],
+                                                   dtype="float64"))
+                 for name, t in rt.loadgen.DEFAULT_TEMPLATES.items()}
+    wl = rt.generate(rt.LoadSpec(**REPLAY_LOAD), templates=templates)
+    replays, walls = {}, {}
+    for device in ("cuda", "cpu"):
+        t0 = time.time()
+        replays[device] = api.replay(wl, cluster=rt.Cluster(
+            rt.ClusterConfig(policy="fair_share"), device=device))
+        walls[device] = time.time() - t0
+    gap = hold_cluster("replay", replays["cuda"], replays["cpu"])
+    rep = replays["cuda"].report
+    n_rounds = sum(j.rounds for j in replays["cuda"].jobs)
+    if any(j.state != "done" for j in replays["cuda"].jobs):
+        fail("replay: a job did not finish")
+    say(f"[3] Poisson replay ({len(wl)} jobs, {n_rounds} rounds, float64, "
+        f"fair_share): card report equals the CPU's, traces {gap:.2e} apart "
+        f"(rtol {CLUSTER_RTOL:g});"
+        f" p50 {rep.p50_latency_s:.2f} s, p95 {rep.p95_latency_s:.2f} s, "
+        f"deadline attainment {rep.deadline_attainment:.3f}, warm-hit rate "
+        f"{rep.warm_hit_rate:.3f}; wall {walls['cuda']:.1f} s on the card, "
+        f"{walls['cpu']:.1f} s on the CPU")
+
+
 # ---------------------------------------------------------------------------
 # phases 4 and 6: the paper's size
 # ---------------------------------------------------------------------------
+
+
+def paper_spec(api, SchedulerConfig, phase, kernel="cuda", pool=None):
+    """Phase ``phase``'s deployment as an ExperimentSpec (the pool config
+    ``pool`` if given)."""
+    name, kw, _ = PAPER_PATHS[phase]
+    extra = {} if pool is None else {"pool": pool}
+    return api.ExperimentSpec(
+        problem=name, problem_kwargs=kw,
+        scheduler=SchedulerConfig(n_workers=PAPER_W, engine="batched",
+                                  kernel=kernel, **extra),
+        max_rounds=PAPER_ROUNDS)
 
 
 def paper_run(torch, api, SchedulerConfig, problem, phase, kernel, lv, st):
     """PAPER_ROUNDS rounds of phase ``phase``'s deployment on ``problem``;
     the wall and the margin and z-update kernels' launch counts after each
     round."""
-    name, kw, loss = PAPER_PATHS[phase]
-    cfg = SchedulerConfig(n_workers=PAPER_W, engine="batched", kernel=kernel)
-    spec = api.ExperimentSpec(problem=name, problem_kwargs=kw,
-                              scheduler=cfg, max_rounds=PAPER_ROUNDS)
+    loss = PAPER_PATHS[phase][2]
+    spec = paper_spec(api, SchedulerConfig, phase, kernel)
     walls, per_round = [], []
     t_last = [0.0]
 
@@ -1038,6 +1256,13 @@ def control_mask(mask, frac: float = CONTROL_FRAC):
     return ctrl
 
 
+def round_keys(res):
+    """Per round of a RunResult: (r_norm, s_norm, rho, the per-worker inner
+    counts, z_nnz) — what two runs of one spec must share bit for bit."""
+    return [(m.r_norm, m.s_norm, m.rho, tuple(m.inner_iters.tolist()),
+             m.z_nnz) for m in res.history]
+
+
 def witness_gaps(got, want):
     """Over the rounds of two traces (lists of trace rows): the worst
     relative gap of r_norm, s_norm and rho, and the largest |inner_mean|
@@ -1058,9 +1283,10 @@ def phase_paper(torch, api, problems, SchedulerConfig, lv, st, ref,
     for W=64, run PAPER_ROUNDS rounds through ``api.run`` with
     kernel="cuda", hold the margin kernel against its plain version on the
     staged shards at the workers' last x, then the witness (the same
-    rounds twice with kernel="torch", the plain sparse path on the card)
-    and the control (the kernel path with ``control_mask``).  Returns the
-    run's launch counts."""
+    rounds twice with kernel="torch", the plain sparse path on the card,
+    whose two runs must agree bit for bit) and the control (the kernel path
+    with ``control_mask``).  Returns the run's launch counts and its
+    ``round_keys``."""
     name, kw, loss = PAPER_PATHS[phase]
     rtol, inner_limit = WITNESS_RTOL, WITNESS_INNER
     tag = f"[{phase}]"
@@ -1133,8 +1359,9 @@ def phase_paper(torch, api, problems, SchedulerConfig, lv, st, ref,
         f"staged shards {err:.2e} (tolerance {PARITY_RTOL:g} x max(1, "
         f"|plain|)); final z_nnz {int((abs(z) > 0).sum())}")
 
-    # the witness, twice (its float atomics do not repeat: the spread); the
-    # control: the kernel path with the tail of each lane masked out
+    # the witness, twice (it sums in a fixed order: the two runs must agree
+    # bit for bit); the control: the kernel path with the tail of each lane
+    # masked out
     witness, w_walls, _ = paper_run(torch, api, SchedulerConfig, problem,
                                     phase, "torch", lv, st)
     again, _, _ = paper_run(torch, api, SchedulerConfig, problem, phase,
@@ -1154,20 +1381,187 @@ def phase_paper(torch, api, problems, SchedulerConfig, lv, st, ref,
             f"round {row['k']} r_norm {row['r_norm']:.6g}, s_norm "
             f"{row['s_norm']:.6g}, rho {row['rho']:g}, inner_mean "
             f"{row['inner_mean']:.3f}" for row in r.trace))
+    repeats = round_keys(again) == round_keys(witness)
     say(f"{tag} witness: cuda vs torch worst relative gap (r_norm, s_norm, "
         f"rho) {rel:.3e} (limit {rtol:g}), inner_mean gap {inner:.3f} "
         f"(limit {inner_limit:g}); torch vs torch again (the witness's "
-        f"spread) {s_rel:.3e}, {s_inner:.3f}; control (last {cut} rows of "
-        f"each lane masked) vs torch {c_rel:.3e}, inner_mean gap "
-        f"{c_inner:.3f}; torch round walls "
+        f"spread) {s_rel:.3e}, {s_inner:.3f}, every round bitwise equal: "
+        f"{repeats}; control (last {cut} rows of each lane masked) vs torch "
+        f"{c_rel:.3e}, inner_mean gap {c_inner:.3f}; torch round walls "
         f"{', '.join(f'{w:.2f}' for w in w_walls)} s")
+    if not repeats or s_rel != 0.0 or s_inner != 0.0:
+        fail(f"{name} paper instance: the kernel=\"torch\" witness does not "
+             f"repeat bit for bit ({s_rel:.3e} relative, {s_inner:.3f} "
+             f"inner_mean)")
     if not (rel <= rtol and inner <= inner_limit):
         fail(f"{name} paper instance: the cuda run strays from the torch "
              f"run ({rel:.3e} relative, {inner:.3f} inner_mean)")
     if c_rel <= rtol and c_inner <= inner_limit:
         say(f"{tag} the control passes the witness's limits: the witness "
             f"cannot tell it apart; phase 2's per-call parity is the guard")
-    return launches
+    return launches, round_keys(res)
+
+
+# phase 7: the multi-tenant cluster at the paper's size.  Four jobs of two
+# tenants submitted at t = 0 to one DRF cluster: alice runs phase 4's logreg
+# deployment twice, bob phase 6's svm deployment twice, each job on a pool
+# seed of its own.  One logreg and one svm instance, each shared by its
+# tenant's two jobs (as api.replay shares one instance per template), svm
+# on logreg's rows.  Two jobs of 64 workers fit the 128-worker cap at once
+CLUSTER7 = dict(policy="drf", max_concurrent_jobs=2, max_active_workers=128,
+                share_provider=True)
+JOBS7 = (("alice", 4, 41), ("alice", 4, 42), ("bob", 6, 61), ("bob", 6, 62))
+PEAK_LIMIT_GB = 80.0
+KERNELS7 = ("logistic", "hinge", "soft_threshold")
+
+
+def launch_counts(lv, st):
+    return {"logistic": lv.LAUNCHES["logistic"],
+            "hinge": lv.LAUNCHES["hinge"],
+            "soft_threshold": st.LAUNCHES["soft_threshold"]}
+
+
+def count_job_steps(torch, cluster, lv, st, per_job):
+    """Wrap ``cluster._dispatch`` so each dispatched job's ``step`` records
+    into ``per_job[job_id]`` its host wall (synchronized) and the launches
+    of each ADMM kernel it made, round by round."""
+    dispatch = cluster._dispatch
+
+    def spy(job, at, **kw):
+        dispatch(job, at, **kw)
+        step = job.scheduler.step
+        rounds = per_job.setdefault(job.job_id, [])
+
+        def counted(*a, _step=step, _rounds=rounds, **k):
+            torch.cuda.synchronize()
+            before, t0 = launch_counts(lv, st), time.time()
+            out = _step(*a, **k)
+            torch.cuda.synchronize()
+            after = launch_counts(lv, st)
+            _rounds.append((time.time() - t0, {
+                n: after[n] - before[n] for n in KERNELS7}))
+            return out
+        job.scheduler.step = counted
+    cluster._dispatch = spy
+
+
+def phase_cluster(torch, api, problems, rt, lv, st, solo, solo_launches,
+                  kernel_ms):
+    """Phase 7: the four jobs under the heap engine, then the scan engine,
+    each job's rounds held bit for bit to its solo run (phase 4's or 6's
+    in this call, else run here), heap's report to scan's, the margin
+    launches to the sum of the jobs' own, the peak memory to the card.
+    Returns the launches read around each engine's run."""
+    tag = "[7]"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    say(f"{tag} device memory in use before the phase: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    t0 = time.time()
+    inst = {4: problems.make("logreg", device="cuda", **PAPER_KW),
+            6: problems.make("svm", device="cuda", **SVM_KW)}
+    inst[4].batch_shards(PAPER_W)
+    # svm reads the logreg generator on the same config: the same rows
+    inst[6]._shard_cache.update(inst[4]._shard_cache)
+    torch.cuda.synchronize()
+    t_gen = time.time() - t0
+    t0 = time.time()
+    staged = [p.kernel_batch_shards(PAPER_W)[0][0] for p in inst.values()]
+    torch.cuda.synchronize()
+    say(f"{tag} generated the paper's rows once in {t_gen:.2f} s (svm on "
+        f"logreg's shards); staged two dense batches "
+        f"{' and '.join(str(tuple(a.shape)) for a in staged)} "
+        f"({sum(a.numel() for a in staged) * 4 / 1e9:.2f} GB) in "
+        f"{time.time() - t0:.2f} s")
+    del staged
+    for phase in (4, 6):
+        if phase not in solo:
+            loss = PAPER_PATHS[phase][2]
+            lv.reset_launches()
+            st.reset_launches()
+            res = api.run(paper_spec(api, rt.SchedulerConfig, phase),
+                          problem=inst[phase])
+            solo[phase] = round_keys(res)
+            solo_launches[phase] = {loss: lv.LAUNCHES[loss]}
+            say(f"{tag} solo run of phase {phase}'s spec (phase {phase} did "
+                f"not run in this call): {lv.LAUNCHES[loss]} {loss} "
+                f"launches")
+
+    fingerprints, counts = {}, {}
+    for engine in ("heap", "scan"):
+        c = rt.Cluster(rt.ClusterConfig(engine=engine, **CLUSTER7),
+                       device="cuda")
+        jobs = [(c.submit(paper_spec(api, rt.SchedulerConfig, phase,
+                                     pool=rt.PoolConfig(seed=seed)),
+                          tenant=tenant, problem=inst[phase]), phase)
+                for tenant, phase, seed in JOBS7]
+        per_job = {}
+        count_job_steps(torch, c, lv, st, per_job)
+        lv.reset_launches()
+        st.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = c.run_all()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts[engine] = launch_counts(lv, st)
+        summed = {n: sum(d[n] for rounds in per_job.values()
+                         for _, d in rounds) for n in KERNELS7}
+        if summed != counts[engine]:
+            fail(f"{tag} {engine}: launches {counts[engine]} against the "
+                 f"jobs' own {summed}")
+        for job, phase in jobs:
+            name, _, loss = PAPER_PATHS[phase]
+            rounds = per_job[job.job_id]
+            n_margin = sum(d[loss] for _, d in rounds)
+            n_z = sum(d["soft_threshold"] for _, d in rounds)
+            if job.state != "done" or round_keys(job.result) != solo[phase]:
+                fail(f"{tag} {engine}: job {job.job_id} ({job.tenant}, "
+                     f"{name}) does not repeat its solo run bit for bit: "
+                     f"{round_keys(job.result)[:1]} against "
+                     f"{solo[phase][:1]}")
+            if (n_margin != solo_launches[phase][loss]
+                    or n_z != len(rounds)):
+                fail(f"{tag} {engine}: job {job.job_id} made {n_margin} "
+                     f"{loss} and {n_z} z-update launches; its solo run "
+                     f"{solo_launches[phase][loss]} and {len(rounds)}")
+            parts = []
+            for k, (w, d) in enumerate(rounds, 1):
+                busy = ""
+                if kernel_ms:
+                    t_k = (d[loss] * kernel_ms[loss]
+                           + d["soft_threshold"]
+                           * kernel_ms["soft_threshold"]) / 1e3
+                    busy = (f" ({d[loss]} x {kernel_ms[loss]:.3f} ms = "
+                            f"{t_k:.2f} s of kernel, host share "
+                            f"{1 - t_k / w:.3f})")
+                parts.append(f"round {k} {w:.2f} s{busy}")
+            say(f"{tag} {engine}: job {job.job_id} {job.tenant} {name}: "
+                f"latency {job.latency_s:.3f} s, cost "
+                f"${job.result.cost_usd:.6f} (simulated), {job.rounds} "
+                f"rounds, {n_margin} {loss} + {n_z} z-update launches; "
+                + "; ".join(parts))
+        rep = res.report
+        say(f"{tag} {engine}: 4 jobs in {wall:.2f} s of wall; report p50 "
+            f"{rep.p50_latency_s:.3f} s, p95 {rep.p95_latency_s:.3f} s, "
+            f"makespan {rep.makespan_s:.3f} s, warm-hit rate "
+            f"{rep.warm_hit_rate:.3f}, cost ${rep.total_cost_usd:.6f} "
+            f"(simulated); launches {counts[engine]}, each job's rounds "
+            f"bitwise equal to its solo run")
+        fingerprints[engine] = cluster_fingerprint(res)
+        del c, res, jobs
+    if fingerprints["heap"] != fingerprints["scan"]:
+        fail(f"{tag} the heap and scan engines' reports differ")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    say(f"{tag} heap and scan reports equal job for job; peak device "
+        f"memory {peak:.2f} GB (limit {PEAK_LIMIT_GB:g})")
+    if not peak < PEAK_LIMIT_GB:
+        fail(f"{tag} peak device memory {peak:.2f} GB")
+    del inst
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
 
 
 def time_admm_kernels(torch, src: Path):
@@ -1204,7 +1598,7 @@ def time_admm_kernels(torch, src: Path):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--src", type=Path,
                     help="run no phase: time the margin kernel and the "
@@ -1212,6 +1606,8 @@ def main(argv=None):
                          "and print one JSON line (see time_admm_kernels)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
+    if not phases <= set(range(1, 8)):
+        fail(f"--phases takes phases 1 to 7, got {sorted(phases)}")
 
     if not (SRC / "repro_torch" / "api.py").is_file():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
@@ -1225,6 +1621,7 @@ def main(argv=None):
     sys.path.insert(0, str(SRC))
     import torch.nn.functional as F
     from repro_torch import api, configs, problems
+    from repro_torch import runtime as rt
     from repro_torch.core.admm import AdmmOptions
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import decode_attention as dec
@@ -1259,31 +1656,42 @@ def main(argv=None):
                     lv, st)
         phase_small_modes(torch, api, SchedulerConfig, AdmmOptions,
                           PoolConfig, lv, st)
+        phase_small_cluster(torch, api, problems, rt, AdmmOptions, lv, st)
     kernel_ms = {k: r["ms"] for k, r in results.items()}
-    launches, z_by_phase = {}, {}
-    if 4 in phases:
-        got = phase_paper(torch, api, problems, SchedulerConfig, lv, st,
-                          ref, kernel_ms, 4)
-        z_by_phase[4] = got.pop("soft_threshold")
-        launches.update(got)
+    # each main path's launches, read around its own run: kernel -> phase
+    # -> count
+    by_phase = {k: {} for k in ("logistic", "hinge", "soft_threshold",
+                                "flash_attention", "decode_attention")}
+    # phases 4 and 6's kernel-path runs: round_keys and launch counts, the
+    # solo runs phase 7's jobs are held to
+    solo, solo_launches = {}, {}
+    for phase in (4, 5, 6, 7):
+        if phase not in phases:
+            continue
         gc.collect()
         torch.cuda.empty_cache()
-    if 5 in phases:
-        gc.collect()
-        phase_serve_reduced(torch, configs, model, fa, dec)
-        launches.update(phase_serve(torch, configs, model, serve, fa, dec,
-                                    kernel_ms)[0])
-        gc.collect()
-        torch.cuda.empty_cache()
-    if 6 in phases:
-        got = phase_paper(torch, api, problems, SchedulerConfig, lv, st,
-                          ref, kernel_ms, 6)
-        z_by_phase[6] = got.pop("soft_threshold")
-        launches.update(got)
-    # the z-update runs on both paper-size paths; each count was read
-    # around its own path's run
-    launches["soft_threshold"] = sum(z_by_phase.values())
-    if not {2, 4, 5, 6} <= phases:
+        if phase in (4, 6):
+            got, solo[phase] = phase_paper(torch, api, problems,
+                                           SchedulerConfig, lv, st, ref,
+                                           kernel_ms, phase)
+            by_phase["soft_threshold"][str(phase)] = got.pop(
+                "soft_threshold")
+            solo_launches[phase] = got
+            for k, n in got.items():
+                by_phase[k][str(phase)] = n
+        elif phase == 5:
+            phase_serve_reduced(torch, configs, model, fa, dec)
+            got = phase_serve(torch, configs, model, serve, fa, dec,
+                              kernel_ms)[0]
+            for k, n in got.items():
+                by_phase[k]["5"] = n
+        else:
+            got = phase_cluster(torch, api, problems, rt, lv, st, solo,
+                                solo_launches, kernel_ms)
+            for engine, counts in got.items():
+                for k, n in counts.items():
+                    by_phase[k][f"7 {engine}"] = n
+    if not {2, 4, 5, 6, 7} <= phases:
         say(f"phases {sorted(phases)} passed")
         return
 
@@ -1307,14 +1715,15 @@ def main(argv=None):
     kernels = []
     for key, (name, src, replaces, on_path, body) in meta.items():
         r = results[key]
+        if not by_phase[key] or 0 in by_phase[key].values():
+            fail(f"{name}: a main path launched it no time: {by_phase[key]}")
         kernels.append(dict(
             name=name, route="cuda", source=source.format(src),
-            replaces=replaces, launches=launches[key],
+            replaces=replaces, launches=sum(by_phase[key].values()),
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r.get("library_ms"), on_path=on_path, body=body,
-            shape=r["shape"], **({"launches_by_phase": z_by_phase}
-                                 if key == "soft_threshold" else {}),
+            shape=r["shape"], launches_by_phase=by_phase[key],
             **{k: r[k] for k in ("eager_ms", "eager_plain_ms", "read_ms",
                                  "floor_ms", "ms_1e6", "bound_ms_1e6")
                if k in r}))

@@ -11,14 +11,23 @@
     result.trace[-1]["r_norm"], result.cost_usd
 
 ``run`` and ``build`` put the problem on the card unless ``device`` says
-otherwise; without a card, ``device="cuda"`` raises.
+otherwise; without a card, ``device="cuda"`` raises.  So do the
+multi-tenant verbs, which queue specs on a shared-pool ``Cluster``
+(``runtime/cluster.py``) instead of running them solo:
+
+    submit(spec_a, tenant="alice")
+    submit(spec_b, tenant="bob", priority=2)
+    result = run_all()           # ClusterResult: jobs + ClusterReport
+
+``submit_dag`` queues a phase-structured job, ``submit_at`` a timestamped
+arrival, ``replay`` a whole ``runtime.loadgen`` trace; ``demand`` is a
+spec's (workers, mem_gb, egress_mbps) vector.
 
 Ported: the first-order workloads (``logreg``, ``svm``, ``lasso``,
-``softmax``, ``logreg_l2``), every barrier mode (sync, drop_slowest,
-replicated, async_), both engines and fan-ins, and ω compression (topk,
-qsgd).  Not yet: the second-order workloads (``newton_sketch``,
-``double_ml``) and the multi-tenant cluster surface (``submit``,
-``run_all``, ``replay``, DAGs).
+``softmax``, ``logreg_l2``) and ``double_ml``, every barrier mode (sync,
+drop_slowest, replicated, async_), both engines and fan-ins, ω compression
+(topk, qsgd) and the cluster surface.  Not yet: the second-order workload
+``newton_sketch`` (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -30,6 +39,10 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 
 from repro_torch import problems
+from repro_torch.device import resolve_device
+from repro_torch.runtime.cluster import (Cluster, ClusterConfig,
+                                         ClusterResult, DagRun, DagSpec,
+                                         StageResult, StageSpec)
 from repro_torch.runtime.scheduler import (RoundMetrics, Scheduler,
                                            SchedulerConfig)
 
@@ -160,3 +173,115 @@ def run(spec: ExperimentSpec, *, problem=None, device="cuda",
     sched.solve(max_rounds=spec.max_rounds, on_round=on_round)
     return result_from_scheduler(spec, prob, sched,
                                  wall_s=time.time() - t0)
+
+
+# ---------------------------------------------------------------------------
+# Multi-tenant surface: many specs, one shared warm pool
+# ---------------------------------------------------------------------------
+
+_default_cluster: Optional[Cluster] = None
+
+
+def _cluster_for(cluster: Optional[Cluster], device) -> Cluster:
+    """The given cluster, else the module-default one, made on ``device``
+    at the first submit of a batch."""
+    global _default_cluster
+    if cluster is not None:
+        return cluster
+    if _default_cluster is None:
+        _default_cluster = Cluster(device=device)
+    elif _default_cluster.device != resolve_device(device):
+        raise ValueError(f"the default cluster's batch lives on "
+                         f"{_default_cluster.device}, not {device}; "
+                         f"run_all() it first or pass a Cluster")
+    return _default_cluster
+
+
+def submit(spec: ExperimentSpec, *, tenant: str = "default",
+           priority: int = 0, deadline_s: Optional[float] = None,
+           at: float = 0.0, problem=None,
+           cluster: Optional[Cluster] = None, device="cuda"):
+    """Queue a spec on a cluster (the module-default one, on ``device``,
+    unless given) instead of running it solo: many submitted jobs then
+    share one warm sandbox pool, interleaved round by round by
+    ``run_all()``.  Returns the ``Job`` handle (state ``queued``, or
+    ``rejected`` with a reason: admission control)."""
+    return _cluster_for(cluster, device).submit(
+        spec, tenant=tenant, priority=priority, deadline_s=deadline_s,
+        at=at, problem=problem)
+
+
+def run_all(cluster: Optional[Cluster] = None, on_job_done=None):
+    """Drive every job submitted to the cluster (module-default unless
+    given) to completion; returns the ``ClusterResult``.  The default
+    cluster is reset afterwards, so the next ``submit()`` starts a fresh
+    batch."""
+    global _default_cluster
+    if cluster is None:
+        cluster = _default_cluster
+        _default_cluster = None
+        if cluster is None:
+            raise RuntimeError("nothing submitted: call api.submit() "
+                               "first or pass a Cluster")
+    return cluster.run_all(on_job_done=on_job_done)
+
+
+def submit_dag(dag: DagSpec, *, tenant: str = "default", priority: int = 0,
+               deadline_s: Optional[float] = None, at: float = 0.0,
+               problems: Optional[Dict[str, Any]] = None,
+               cluster: Optional[Cluster] = None, device="cuda") -> DagRun:
+    """Queue a phase-structured job (a ``DagSpec`` of named stages with
+    per-stage parallelism) on a cluster (module-default, on ``device``,
+    unless given).  Root stages queue at ``at``; a downstream stage is held
+    until its last predecessor completes, then dispatches with its own
+    worker demand and receives the predecessors' ``StageResult``s through
+    ``problem.consume_stage_results`` if its problem has that hook.
+    ``ClusterConfig(reservation=...)`` picks what admission reserves
+    (``"phase"``: each running stage; ``"peak"``: the DAG's peak level for
+    its whole life).  Returns the ``DagRun`` handle."""
+    return _cluster_for(cluster, device).submit_dag(
+        dag, tenant=tenant, priority=priority, deadline_s=deadline_s,
+        at=at, problems=problems)
+
+
+def demand(spec: ExperimentSpec) -> Dict[str, float]:
+    """The (workers, mem_gb, egress_mbps) demand a spec presents to a
+    cluster — what DRF admission and class-aware placement reason about
+    (``runtime.placement``)."""
+    from repro_torch.runtime.placement import spec_resource_vector
+    return spec_resource_vector(spec).to_dict()
+
+
+def submit_at(spec: ExperimentSpec, at: float, **kw):
+    """``submit`` with the arrival instant as a positional: the job stays
+    invisible to admission until the cluster clock reaches ``at``."""
+    return submit(spec, at=at, **kw)
+
+
+def replay(workload, *, cluster: Optional[Cluster] = None,
+           on_job_done=None, progress_every: int = 0, device="cuda"):
+    """Replay a ``runtime.loadgen.TraceWorkload`` against a cluster (a
+    fresh one on ``device`` unless given): submit every trace job at its
+    timestamped arrival, with the trace's tenant and deadline and one
+    problem instance per template, built on the cluster's device and
+    shared by every job of that template; then drive the event loop to
+    completion.  ``progress_every`` > 0 prints a progress line every that
+    many completions.  Returns the ``ClusterResult``."""
+    if cluster is None:
+        cluster = Cluster(device=device)
+    problems_by_template = workload.problem_instances(device=cluster.device)
+    for tj in workload.jobs:
+        cluster.submit(workload.experiment_spec(tj), tenant=tj.tenant,
+                       deadline_s=tj.deadline_s, at=tj.submit_at,
+                       problem=problems_by_template[tj.template])
+    n_done = [0]
+
+    def _hook(job):
+        n_done[0] += 1
+        if progress_every and n_done[0] % progress_every == 0:
+            print(f"  [replay] {n_done[0]}/{len(workload.jobs)} jobs done "
+                  f"(sim t={job.finished_at:.0f}s)", flush=True)
+        if on_job_done:
+            on_job_done(job)
+
+    return cluster.run_all(on_job_done=_hook)

@@ -19,6 +19,7 @@ indices in the reference's order.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Tuple
 
 import torch
@@ -85,9 +86,36 @@ def worker_shard_sparse(cfg: LogRegConfig, w: int, n_workers: int,
     return tuple(torch.cat(p) for p in zip(*parts))
 
 
+@contextlib.contextmanager
+def _deterministic():
+    """Deterministic algorithms for the enclosed block only: the process's
+    setting is restored on the way out."""
+    on = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(on, warn_only=warn_only)
+
+
+def add_at(out: torch.Tensor, index: torch.Tensor,
+           src: torch.Tensor) -> torch.Tensor:
+    """``out.view(-1)[index] += src`` over flat indices, duplicates summed
+    in a fixed order, so the result repeats bit for bit: on the CPU one
+    serial pass in element order, on CUDA a stable sort of the indices and
+    a sum over each run of equal indices in sorted order (``index_put_``
+    with ``accumulate=True`` under deterministic algorithms; float atomics,
+    as ``index_add_`` and ``scatter_add_`` use, sum in arrival order).
+    Returns ``out``."""
+    with _deterministic():
+        out.view(-1).index_put_((index,), src, accumulate=True)
+    return out
+
+
 def sparse_logistic_value_and_grad(idx: torch.Tensor, vals: torch.Tensor,
                                    b: torch.Tensor, d: int):
-    """vg(x) for one sparse shard: margins by gather, grad by index_add_."""
+    """vg(x) for one sparse shard: margins by gather, grad by ``add_at``."""
     flat_idx = idx.reshape(-1)
 
     def vg(x):
@@ -97,9 +125,16 @@ def sparse_logistic_value_and_grad(idx: torch.Tensor, vals: torch.Tensor,
         coef = -b * torch.sigmoid(margins)                   # (N,)
         contrib = (coef[:, None] * vals).reshape(-1)
         grad = torch.zeros((d,), dtype=x.dtype, device=x.device)
-        grad.index_add_(0, flat_idx, contrib)
-        return f, grad
+        return f, add_at(grad, flat_idx, contrib)
     return vg
+
+
+def lane_flat_indices(idx: torch.Tensor, d: int) -> torch.Tensor:
+    """Stacked gather indices idx (W, N, k) -> flat indices into a (W, d)
+    gradient, lane w's offset by w·d, for ``add_at``."""
+    W = idx.shape[0]
+    lanes = torch.arange(W, dtype=idx.dtype, device=idx.device) * d
+    return (idx.reshape(W, -1) + lanes[:, None]).reshape(-1)
 
 
 def logistic_value_and_grad(A: torch.Tensor, b: torch.Tensor):

@@ -29,7 +29,12 @@ def _margin(A, b, x, mask, *, loss: str, gamma: float):
         A, b, x = A[None], b[None], x[None]
         mask = None if mask is None else mask[None]
     if mask is None:
-        mask = torch.ones(A.shape[:2], dtype=A.dtype, device=A.device)
+        mask = torch.ones(A.shape[:2], dtype=torch.float32, device=A.device)
+    # the kernel runs in float32 whatever the caller's dtype, as the
+    # reference's wrapper casts A, b, mask and x into float32 buffers; the
+    # results stay float32 (a float64 caller's arithmetic widens them).
+    # Callers stage A, b and mask in float32 once, so only x is cast here
+    A, b, mask, x = (t.to(torch.float32) for t in (A, b, mask, x))
     if A.is_cuda:
         f, g = lv_k.margin_vjp_cuda(A, b.contiguous(), mask.contiguous(),
                                     x.contiguous(), loss=loss, gamma=gamma)
@@ -43,9 +48,10 @@ def _margin(A, b, x, mask, *, loss: str, gamma: float):
 def fused_logistic_vjp(A, b, x, *, mask=None):
     """Loss+grad of sum_n mask_n * log1p(exp(-b_n <a_n, x>)).
 
-    A (N, D) f32, b (N,) ±1, x (D,); ``mask`` an optional {0,1} row mask
+    A (N, D), b (N,) ±1, x (D,); ``mask`` an optional {0,1} row mask
     (masked rows contribute exactly zero).  A leading worker axis batches:
-    A (W, N, D), b/mask (W, N), x (W, D) -> (loss (W,), grad (W, D))."""
+    A (W, N, D), b/mask (W, N), x (W, D) -> (loss (W,), grad (W, D)).
+    Computed in float32 and returned in float32 for any input dtype."""
     return _margin(A, b, x, mask, loss="logistic", gamma=0.0)
 
 

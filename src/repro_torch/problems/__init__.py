@@ -1,16 +1,18 @@
 """Workload registry of the port: the problems the scheduler can drive.
 
     from repro_torch import problems
-    problems.available()   # ['lasso', 'logreg', 'logreg_l2', 'softmax', 'svm']
+    problems.available()   # ['double_ml', 'lasso', 'logreg', 'logreg_l2',
+                           #  'softmax', 'svm']
     p = problems.make("svm", device="cpu")
 
-The reference also registers ``newton_sketch`` and ``double_ml``; they wait
-for the second-order slice (ROADMAP.md, Queue 1).
+The reference also registers ``newton_sketch``; it waits for the
+second-order slice (ROADMAP.md, Queue 1).
 """
 from repro_torch.problems.base import (BatchedShardProblem, FistaShardProblem,
                                        WorkerProblem, as_fista_options,
                                        available, carry_shards, make,
                                        register, unregister)
+from repro_torch.problems.double_ml import DoubleMLProblem, double_ml_dag
 from repro_torch.problems.lasso import LassoProblem
 from repro_torch.problems.logreg import LogRegProblem
 from repro_torch.problems.newton_sketch import LogRegL2Problem
@@ -21,5 +23,5 @@ __all__ = [
     "WorkerProblem", "FistaShardProblem", "BatchedShardProblem",
     "register", "unregister", "make", "available", "as_fista_options",
     "carry_shards", "LogRegProblem", "LassoProblem", "SVMProblem",
-    "SoftmaxProblem", "LogRegL2Problem",
+    "SoftmaxProblem", "LogRegL2Problem", "DoubleMLProblem", "double_ml_dag",
 ]

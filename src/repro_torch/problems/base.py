@@ -30,7 +30,7 @@ import torch
 
 from repro_torch.core import fista as fista_mod
 from repro_torch.core.fista import FistaOptions
-from repro_torch.data.logreg import shard_rows
+from repro_torch.data.logreg import add_at, shard_rows
 from repro_torch.data import threefry as tf
 from repro_torch.device import resolve_device
 
@@ -122,15 +122,14 @@ def densify_sparse_rows(idx: torch.Tensor, vals: torch.Tensor,
     """Gather-format sparse rows (idx (..., N, k), vals (..., N, k)) ->
     dense (..., N, d) rows on their own device, duplicate indices summed —
     exactly the matrix whose row products ``sum(vals * x[idx])`` are.  One
-    ``index_put_`` builds the whole stack, so the paper's 24 GB batch never
+    ``add_at`` builds the whole stack, so the paper's 24 GB batch never
     passes through host memory."""
     lead = tuple(idx.shape[:-1])
     k = idx.shape[-1]
     a = torch.zeros(lead + (d,), dtype=vals.dtype, device=vals.device)
-    rows = torch.arange(math.prod(lead), device=vals.device)
-    a.view(-1, d).index_put_((rows.repeat_interleave(k), idx.reshape(-1)),
-                             vals.reshape(-1), accumulate=True)
-    return a
+    rows = torch.arange(math.prod(lead), device=vals.device) * d
+    flat = (rows[:, None] + idx.reshape(-1, k)).reshape(-1)
+    return add_at(a, flat, vals.reshape(-1))
 
 
 def carry_shards(problem, shards: Dict[Tuple[int, int], Tuple]) -> None:
@@ -156,13 +155,17 @@ def dense_kernel_batch(problem, n_workers: int) -> Tuple:
     gather-format shards (idx, vals, b) — logreg and svm: the margin kernel
     streams dense rows, so the stacked batch is scattered into (W, Nmax, d)
     rows on the device once per fleet size (cached; a new W re-densifies).
-    Returns ((A, b), mask)."""
+    The kernel runs in float32 for every problem dtype, so A, b and the mask
+    are staged in float32 (a float64 problem's values are float32 draws
+    widened, so nothing rounds).  Returns ((A, b), mask)."""
     if problem._kernel_batch_cache is None:
         problem._kernel_batch_cache = {}
     if n_workers not in problem._kernel_batch_cache:
         (idx, vals, b), mask = problem.batch_shards(n_workers)
-        dense = densify_sparse_rows(idx, vals, problem.n_features)
-        problem._kernel_batch_cache[n_workers] = ((dense, b), mask)
+        dense = densify_sparse_rows(idx, vals.to(torch.float32),
+                                    problem.n_features)
+        problem._kernel_batch_cache[n_workers] = (
+            (dense, b.to(torch.float32)), mask.to(torch.float32))
     return problem._kernel_batch_cache[n_workers]
 
 

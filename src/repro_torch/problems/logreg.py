@@ -3,7 +3,7 @@ shards (Section III) — the counterpart of ``repro.problems.logreg``.
 
 Two engines share the data:
   * the loop engine solves one worker at a time on its sparse shard
-    (gather for the margins, ``index_add_`` for the gradient);
+    (gather for the margins, ``data.logreg.add_at`` for the gradient);
   * the batched engine runs all W workers as lanes of one FISTA, either
     on the stacked sparse shards (``kernel="torch"``) or on dense shards
     staged once on the device for the fused margin kernel
@@ -71,6 +71,7 @@ class LogRegProblem(base.BatchedShardProblem):
         W = idx.shape[0]
         d = self.cfg.n_features
         flat_idx = idx.reshape(W, -1)
+        grad_idx = data_mod.lane_flat_indices(idx, d)
 
         def vg(X):
             ax = torch.sum(vals * X.gather(1, flat_idx).view(idx.shape),
@@ -79,10 +80,9 @@ class LogRegProblem(base.BatchedShardProblem):
             f = torch.sum(mask * torch.logaddexp(torch.zeros_like(margins),
                                                  margins), dim=-1)
             coef = mask * (-b * torch.sigmoid(margins))
-            contrib = (coef[..., None] * vals).reshape(W, -1)
+            contrib = (coef[..., None] * vals).reshape(-1)
             grad = torch.zeros((W, d), dtype=X.dtype, device=X.device)
-            grad.scatter_add_(1, flat_idx, contrib)
-            return f, grad
+            return f, data_mod.add_at(grad, grad_idx, contrib)
         return vg
 
     # -- fused-kernel path (SchedulerConfig(kernel="cuda")) -----------------

@@ -23,7 +23,8 @@ import torch
 
 from repro_torch.configs.logreg_paper import scaled
 from repro_torch.core import prox
-from repro_torch.data.logreg import worker_shard_sparse
+from repro_torch.data.logreg import (add_at, lane_flat_indices,
+                                     worker_shard_sparse)
 from repro_torch.kernels import ops
 from repro_torch.problems import base
 
@@ -71,8 +72,8 @@ class SVMProblem(base.FistaShardProblem):
             m = b * torch.sum(vals * x[idx], dim=-1)         # margins (N,)
             val, dldm = hinge_terms(m, gamma)
             contrib = ((dldm * b)[:, None] * vals).reshape(-1)
-            grad = torch.zeros_like(x).index_add_(0, flat_idx, contrib)
-            return torch.sum(val), grad
+            return torch.sum(val), add_at(torch.zeros_like(x), flat_idx,
+                                          contrib)
         return vg
 
     def _masked_loss_value_and_grad(self, batch, mask):
@@ -82,13 +83,14 @@ class SVMProblem(base.FistaShardProblem):
         W = idx.shape[0]
         gamma = self.smoothing
         flat_idx = idx.reshape(W, -1)
+        grad_idx = lane_flat_indices(idx, self.n_features)
 
         def vg(X):
             m = b * torch.sum(vals * X.gather(1, flat_idx).view(idx.shape),
                               dim=-1)                        # (W, N)
             val, dldm = hinge_terms(m, gamma)
-            contrib = ((mask * dldm * b)[..., None] * vals).reshape(W, -1)
-            grad = torch.zeros_like(X).scatter_add_(1, flat_idx, contrib)
+            contrib = ((mask * dldm * b)[..., None] * vals).reshape(-1)
+            grad = add_at(torch.zeros_like(X), grad_idx, contrib)
             return torch.sum(mask * val, dim=-1), grad
         return vg
 

@@ -31,10 +31,17 @@ to float64; the plain z-update's dual residual is a float32 product, the
 fused one a host float64 product; rho is rounded through float32 by
 ``new_penalty``.
 
+With a float64 problem, ``kernel="cuda"`` runs the margin kernel in
+float32 under the float64 FISTA (the reference's cast: the shards are
+staged in float32 once per fleet size, x is rounded per call, the float32
+results are widened by the float64 steps around them), and the z-update
+takes the plain float64 prox (``z_nnz`` stays -1), as the reference's
+fused z-update runs only for a float32 ω̄.
+
 ``checkpoint_every`` and ``checkpoint_dir`` are accepted and not read, as
 in the reference, whose scheduler never reads them (only its LM trainer
-writes checkpoints).  Second-order problems and the float64 kernel path
-are not ported yet and raise ``NotImplementedError`` (ROADMAP.md, Queue 1).
+writes checkpoints).  Second-order problems are not ported yet and raise
+``NotImplementedError`` (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -109,7 +116,7 @@ class RoundMetrics(NamedTuple):
     z_nnz: int = -1
 
 
-def _check_supported(problem, cfg: SchedulerConfig, dtype) -> None:
+def _check_supported(problem, cfg: SchedulerConfig) -> None:
     if getattr(problem, "second_order", False):
         raise NotImplementedError(
             "second-order problems are " + _WAITS.format(
@@ -119,10 +126,6 @@ def _check_supported(problem, cfg: SchedulerConfig, dtype) -> None:
     if cfg.kernel not in ("torch", "cuda"):
         raise ValueError(f"kernel must be 'torch' or 'cuda', "
                          f"got {cfg.kernel!r}")
-    if cfg.kernel == "cuda" and dtype != torch.float32:
-        raise NotImplementedError(
-            f"kernel='cuda' with dtype {dtype} is " + _WAITS.format(
-                "The float64 kernel path"))
     if cfg.fanin not in ("flat", "tree"):
         raise ValueError(f"fanin must be 'flat' or 'tree', "
                          f"got {cfg.fanin!r}")
@@ -139,15 +142,21 @@ def _check_supported(problem, cfg: SchedulerConfig, dtype) -> None:
 
 
 class Scheduler:
-    """Drives one experiment; its tensors live on the problem's device."""
+    """Drives one experiment; its tensors live on the problem's device.
+    ``pool`` injects a pre-built LambdaPool (the multi-tenant cluster hands
+    every job a pool backed by one shared provider); ``start_time`` starts
+    the event clock at a later instant (the cluster admits jobs
+    mid-timeline).  The defaults give the single-experiment path."""
 
-    def __init__(self, problem: WorkerProblem, cfg: SchedulerConfig):
+    def __init__(self, problem: WorkerProblem, cfg: SchedulerConfig, *,
+                 pool: Optional[LambdaPool] = None,
+                 start_time: float = 0.0):
         dt = getattr(problem, "dtype", torch.float32)
-        _check_supported(problem, cfg, dt)
+        _check_supported(problem, cfg)
         self.problem = problem
         self.cfg = cfg
         self.device = getattr(problem, "device", torch.device("cpu"))
-        self.pool = LambdaPool(cfg.pool)
+        self.pool = pool if pool is not None else LambdaPool(cfg.pool)
         W, d = cfg.n_workers, problem.n_features
         # replicated mode: W physical slots host W/r LOGICAL workers; the
         # r replicas of a logical worker solve the same shard, so first-
@@ -182,16 +191,16 @@ class Scheduler:
         self.meter = BillingMeter(cfg.billing)
         self._billed_spawns = 0
         self.autoscaler: Optional[Autoscaler] = None
-        self.pool.spawn_bulk(list(range(W)), at=0.0)
+        self.pool.spawn_bulk(list(range(W)), at=start_time)
         self.sim_time = max(w.ready_at for w in self.pool.workers.values())
         self.cold_starts = {w.wid: w.cold_start_s
                             for w in self.pool.workers.values()}
         self._bill_spawns()
         # the early workers idle (billed) until the whole fleet is up,
-        # and the coordinator runs from the start
+        # and the coordinator runs from the job's admission instant
         for w in self.pool.workers.values():
             self.meter.record_duration(self.sim_time - w.ready_at)
-        self.meter.record_master(self.sim_time)
+        self.meter.record_master(self.sim_time - start_time)
 
     # -- billing --------------------------------------------------------
     def _bill_spawns(self):

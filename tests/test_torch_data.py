@@ -162,6 +162,40 @@ def test_sparse_logistic_value_and_grad_matches_jax():
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_add_at_sums_in_a_fixed_order(dtype):
+    """``add_at`` (the plain sparse path's gradient sum) gives on the CPU
+    what one serial pass in element order gives, bit for bit, for a single
+    shard and for lanes flattened by ``lane_flat_indices``, every time; it
+    leaves the process's deterministic-algorithms setting as it found
+    it."""
+    rng = np.random.RandomState(1)
+    W, N, k, d = 3, 500, 6, 17                 # many duplicate indices
+    idx = torch.as_tensor(rng.randint(0, d, (W, N, k)))
+    src = torch.as_tensor(rng.randn(W, N, k)).to(dtype)
+    want = torch.zeros((W, d), dtype=dtype)
+    for w in range(W):                         # the serial pass
+        for i, v in zip(idx[w].reshape(-1).tolist(),
+                        src[w].reshape(-1).tolist()):
+            want[w, i] += v
+    got = [t_data.add_at(torch.zeros((W, d), dtype=dtype),
+                         t_data.lane_flat_indices(idx, d), src.reshape(-1))
+           for _ in range(3)]
+    assert all(torch.equal(g, want) for g in got)
+    one = t_data.add_at(torch.zeros(d, dtype=dtype), idx[1].reshape(-1),
+                        src[1].reshape(-1))
+    assert torch.equal(one, want[1])
+    for on in (False, True):
+        torch.use_deterministic_algorithms(on, warn_only=True)
+        try:
+            t_data.add_at(torch.zeros(d, dtype=dtype), idx[0].reshape(-1),
+                          src[0].reshape(-1))
+            assert torch.are_deterministic_algorithms_enabled() is on
+            assert torch.is_deterministic_algorithms_warn_only_enabled()
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+
 def test_dense_logistic_value_and_grad_matches_jax():
     rng = np.random.RandomState(1)
     A = (rng.randn(111, 70) * 0.3).astype(np.float32)

@@ -60,9 +60,12 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 
 
 def test_registry_lists_the_first_order_workloads():
-    assert t_problems.available() == ["lasso", "logreg", "logreg_l2",
-                                      "softmax", "svm"]
-    assert set(t_problems.available()) <= set(j_problems.available())
+    """The first-order workloads and, since the cluster slice, double_ml:
+    every registered name but the reference's second-order newton_sketch."""
+    assert t_problems.available() == ["double_ml", "lasso", "logreg",
+                                      "logreg_l2", "softmax", "svm"]
+    assert set(j_problems.available()) - set(t_problems.available()) == {
+        "newton_sketch"}
 
 
 # ---------------------------------------------------------------------------

@@ -317,13 +317,6 @@ F64 = dict(dtype="float64")
 
 
 @pytest.mark.parametrize("cfg,kw,err", [
-    # the float64 kernel path stays refused in every mode
-    (dict(kernel="cuda", mode="async_"), F64, NotImplementedError),
-    (dict(kernel="cuda", compress="topk"), F64, NotImplementedError),
-    (dict(kernel="cuda", compress="qsgd", engine="batched"), F64,
-     NotImplementedError),
-    (dict(kernel="cuda", checkpoint_every=2), F64, NotImplementedError),
-    (dict(kernel="cuda", engine="batched"), F64, NotImplementedError),
     (dict(kernel="pallas"), {}, ValueError),
     (dict(kernel="xla"), {}, ValueError),
     (dict(engine="vmap"), {}, ValueError),
@@ -339,17 +332,25 @@ def test_unported_options_raise(cfg, kw, err):
             scheduler=SchedulerConfig(n_workers=2, **cfg)), problem=p)
 
 
-@pytest.mark.parametrize("cfg", [
-    dict(mode="async_"), dict(compress="topk"),
-    dict(compress="qsgd", engine="batched"),
-    dict(checkpoint_every=2, checkpoint_dir="ckpt"),
+@pytest.mark.parametrize("cfg,kw", [
+    (dict(mode="async_"), {}), (dict(compress="topk"), {}),
+    (dict(compress="qsgd", engine="batched"), {}),
+    (dict(checkpoint_every=2, checkpoint_dir="ckpt"), {}),
+    # the float64 kernel path, in every mode
+    (dict(kernel="cuda", mode="async_"), F64),
+    (dict(kernel="cuda", compress="topk"), F64),
+    (dict(kernel="cuda", compress="qsgd", engine="batched"), F64),
+    (dict(kernel="cuda", checkpoint_every=2), F64),
+    (dict(kernel="cuda", engine="batched"), F64),
 ])
-def test_ported_modes_run(cfg, tmp_path):
-    """Each option the first slices refused now runs; checkpoint fields
-    are accepted and write nothing, as in the reference's scheduler."""
+def test_ported_modes_run(cfg, kw, tmp_path):
+    """Each option the first slices refused now runs, the float64 kernel
+    path included; checkpoint fields are accepted and write nothing, as in
+    the reference's scheduler."""
     if "checkpoint_dir" in cfg:
         cfg = dict(cfg, checkpoint_dir=str(tmp_path / cfg["checkpoint_dir"]))
-    p = t_problems.make("logreg", device="cpu", n_samples=40, n_features=8)
+    p = t_problems.make("logreg", device="cpu", n_samples=40, n_features=8,
+                        **kw)
     res = t_api.run(t_api.ExperimentSpec(
         scheduler=SchedulerConfig(n_workers=2, **cfg), max_rounds=2),
         problem=p)
