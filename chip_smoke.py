@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases 1,2,5  # the kernels and serving only
     python3 chip_smoke.py --phases 1,2,6  # the kernels and svm at size
     python3 chip_smoke.py --phases 1,2,7  # the kernels and the cluster
+    python3 chip_smoke.py --phases 1,8    # the second-order path at size
     python3 chip_smoke.py --src OTHER/src # time another checkout's ADMM
                                           # kernels, nothing else
 
@@ -33,7 +34,12 @@ caught):
      2 logreg jobs of two tenants, fifo and drf, heap and scan: equal
      reports), double_ml (n=2048, p=32, K=4) under reservation="phase"
      and "peak" (theta-hat), and a 200-job Poisson replay from
-     runtime.loadgen (equal reports);
+     runtime.loadgen (equal reports); then newton_sketch (n=512, d=32,
+     W=8) in float64 under sync, drop_slowest and replicated, flat and
+     tree, card against CPU with the loop and batched engines bitwise
+     equal, and bench_newton's configuration (float32): rounds to target
+     of Newton (clean and straggling pools) and its ADMM twin, card against
+     CPU, printed beside benchmarks/baselines/baselines.json's anchors;
   4. the logreg main path at the paper's size: N=600 000, d=10 000, W=64,
      the batched engine with kernel="cuda", through ``api.run``, with the
      margin and z-update kernels' launch counts read around that run;
@@ -62,6 +68,17 @@ caught):
      (phase 4's or 6's when they ran, else run here), heap's report to
      scan's, the margin launches to the sum of the jobs' own, and the
      peak device memory under 80 GB;
+  8. the second-order path at the paper's size: newton_sketch on phase
+     4's rows (generated here when phase 4 did not run), W=64, the
+     batched engine, 3 rounds through ``api.run`` under sync, replicated
+     (r = 2) and sync again, all three bitwise equal; each round's wall
+     split into sketch, Grams and coding, decode, float64 solve and line
+     search beside each part's bound; r_norm falling and Armijo accepting
+     in every round; no ADMM kernel launched; peak device memory under 60
+     GB and no device-to-host copy over 1 MiB (the profiler's record of
+     the third run); the decoded Hessians of rounds 1 and 3 against a
+     float64 oracle of the full stack, with a control (one block dropped
+     without the code) that must miss the limit by over 100x;
 then the kernels line {"kernels": [...]} (when phases 2, 4, 5, 6 and 7
 ran; each entry names the kernel's design in "body" and its launches on
 each main path in "launches_by_phase") and the last line
@@ -1278,7 +1295,7 @@ def witness_gaps(got, want):
 
 
 def phase_paper(torch, api, problems, SchedulerConfig, lv, st, ref,
-                kernel_ms, phase):
+                kernel_ms, phase, keep_rows=None):
     """Phase 4 (logreg) or 6 (svm): generate and stage the paper's data
     for W=64, run PAPER_ROUNDS rounds through ``api.run`` with
     kernel="cuda", hold the margin kernel against its plain version on the
@@ -1286,7 +1303,8 @@ def phase_paper(torch, api, problems, SchedulerConfig, lv, st, ref,
     rounds twice with kernel="torch", the plain sparse path on the card,
     whose two runs must agree bit for bit) and the control (the kernel path
     with ``control_mask``).  Returns the run's launch counts and its
-    ``round_keys``."""
+    ``round_keys``; ``keep_rows`` (a dict) receives the sparse shards, the
+    rows phase 8 reads."""
     name, kw, loss = PAPER_PATHS[phase]
     rtol, inner_limit = WITNESS_RTOL, WITNESS_INNER
     tag = f"[{phase}]"
@@ -1300,6 +1318,8 @@ def phase_paper(torch, api, problems, SchedulerConfig, lv, st, ref,
     problem.batch_shards(PAPER_W)
     torch.cuda.synchronize()
     t_gen = time.time() - t0
+    if keep_rows is not None:
+        keep_rows.update(problem._shard_cache)
     t0 = time.time()
     (A, b_dense), mask = problem.kernel_batch_shards(PAPER_W)
     torch.cuda.synchronize()
@@ -1564,6 +1584,452 @@ def phase_cluster(torch, api, problems, rt, lv, st, solo, solo_launches,
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 3's second-order runs, and phase 8: the second-order path at size
+# ---------------------------------------------------------------------------
+
+# tests/test_newton.py's instance (n=512, d=32, W=8, redundancy 1: FRS with
+# r = 2) in float64 under each barrier mode, on both engines and fan-ins
+NEWTON_SMALL_KW = dict(n_samples=512, n_features=32, redundancy=1,
+                       dtype="float64")
+NEWTON_SMALL_W = 8
+NEWTON_SMALL_ROUNDS = 8
+NEWTON_SMALL_MODES = {"sync": {}, "drop_slowest": dict(drop_frac=0.125),
+                      "replicated": dict(replication=2)}
+# benchmarks/bench_newton.py's own configuration (float32): Newton with a
+# redundancy-8 code under drop_slowest 8/64 on a clean and a straggling
+# pool, and the logreg_l2 ADMM twin; rounds to 1e-3 of the gradient norm
+# at 0.  The anchors in benchmarks/baselines/baselines.json come from
+# another threefry layout (ROADMAP.md, Queue 3): printed, not held
+BENCH_W = 64
+BENCH_KW = dict(n_samples=1024, n_features=64, lam2=1e-3, seed=0)
+BENCH_REDUNDANCY = 8
+BENCH_TARGET_REL = 1e-3
+BENCH_MAX_ROUNDS = dict(newton=25, admm=120)
+BASELINES = ROOT / "benchmarks" / "baselines" / "baselines.json"
+# phase 8: newton_sketch on the paper's rows (Section III) with the
+# reference's defaults for the rest: lam2 1e-3, a count sketch of 8·d rows,
+# redundancy 1 (FRS with r = 2: 63 blocks of ceil(80 000 / 63) = 1 270
+# rows, task 2g and 2g+1 send the same message), W = 64, the batched
+# engine.  Cut: 3 rounds (the reference's benchmark runs up to 25)
+NEWTON_KW = dict(n_samples=600_000, n_features=10_000, density=0.001,
+                 lam2=1e-3, sketch="count", sketch_dim=80_000, redundancy=1)
+NEWTON_W = 64
+NEWTON_ROUNDS = 3
+# the decoded Hessian (the float32 decode, widened) against a float64
+# oracle of the full stack from the same plan: relative Frobenius gap.  The
+# control, the uncoded mean of 63 blocks (block 0 dropped without the
+# code), must miss the limit by more than CONTROL_MARGIN
+HESS_RTOL = 1e-5
+CONTROL_MARGIN = 100.0
+NEWTON_PEAK_GB = 60.0
+# the largest device-to-host copy a Newton round may make (d² floats are
+# 400 MB; z is 40 KB)
+HOST_COPY_LIMIT = 1 << 20
+# H100 SXM FP64 tensor-core rate (NVIDIA's data sheet): the master's solve
+F64_OPS_PER_S = 67e12
+
+
+def newton_spec(api, rt, AdmmOptions, kw, W, rounds, problem="newton_sketch",
+                pool=None, **cfg):
+    """A run of ``rounds`` rounds that no residual stops early."""
+    return api.ExperimentSpec(
+        problem=problem, problem_kwargs=kw,
+        scheduler=rt.SchedulerConfig(
+            n_workers=W, admm=AdmmOptions(eps_primal=-1.0),
+            pool=pool if pool is not None else rt.PoolConfig(seed=0), **cfg),
+        max_rounds=rounds)
+
+
+def newton_keys(res):
+    """Per round: (r_norm, s_norm, sim_time, cost_usd, inner counts)."""
+    return [(m.r_norm, m.s_norm, m.sim_time, m.cost_usd,
+             tuple(m.inner_iters.tolist())) for m in res.history]
+
+
+def rounds_to_target(torch, api, spec, problem, grad_of, target):
+    """Step ``spec`` on ``problem`` until ``grad_of(z)``'s norm reaches
+    ``target``: (rounds or None, sim seconds, dollars) at that round."""
+    _, sched = api.build(spec, problem=problem)
+    for k in range(1, spec.max_rounds + 1):
+        m, _ = sched.step()
+        if float(torch.linalg.vector_norm(grad_of(sched.z))) <= target:
+            return k, m.sim_time, m.cost_usd
+    return None, m.sim_time, m.cost_usd
+
+
+def phase_small_newton(torch, api, problems, rt, AdmmOptions, lv, st):
+    """newton_sketch card against CPU: the small instance in float64 under
+    every mode, engine and fan-in; bench_newton's configuration's rounds to
+    target."""
+    args = (api, rt, AdmmOptions)
+    lv.reset_launches()
+    st.reset_launches()
+    worst = 0.0
+    for mode, extra in NEWTON_SMALL_MODES.items():
+        for fanin in ("flat", "tree"):
+            keys = {(engine, dev): newton_keys(api.run(newton_spec(
+                *args, NEWTON_SMALL_KW, NEWTON_SMALL_W, NEWTON_SMALL_ROUNDS,
+                mode=mode, engine=engine, fanin=fanin, **extra), device=dev))
+                for engine in ("loop", "batched") for dev in ("cuda", "cpu")}
+            name = f"newton_sketch {mode}/{fanin}"
+            for dev in ("cuda", "cpu"):
+                if keys["loop", dev] != keys["batched", dev]:
+                    fail(f"{name} on {dev}: the loop and batched engines' "
+                         f"rounds differ")
+            card, cpu = keys["batched", "cuda"], keys["batched", "cpu"]
+            worst = max(worst, hold(f"{name} float64 card vs CPU", card, cpu,
+                                    F64_RTOL, cols=(0, 1)))
+            if [k[2:] for k in card] != [k[2:] for k in cpu]:
+                fail(f"{name}: the card's clock, bill or inner counts "
+                     f"differ from the CPU's")
+    say(f"[3] newton_sketch (n={NEWTON_SMALL_KW['n_samples']}, "
+        f"d={NEWTON_SMALL_KW['n_features']}, W={NEWTON_SMALL_W}, "
+        f"{NEWTON_SMALL_ROUNDS} rounds, float64) under "
+        f"{', '.join(NEWTON_SMALL_MODES)}, flat and tree: loop == batched "
+        f"bit for bit on each device; card vs CPU {worst:.2e} (rtol "
+        f"{F64_RTOL:g}), sim_time, cost_usd and inner counts equal")
+
+    anchors = json.loads(BASELINES.read_text())["bench_newton.json"]
+    legs = {}
+    for dev in ("cuda", "cpu"):
+        pn = problems.make("newton_sketch", device=dev,
+                           redundancy=BENCH_REDUNDANCY, **BENCH_KW)
+        target = BENCH_TARGET_REL * float(torch.linalg.vector_norm(
+            pn.full_grad(torch.zeros(BENCH_KW["n_features"]))))
+        for leg, stragglers in (("clean", False), ("straggler", True)):
+            pool = (rt.PoolConfig(seed=0, straggler_frac=0.1,
+                                  straggler_slowdown=8.0) if stragglers
+                    else rt.PoolConfig(seed=0))
+            legs[dev, f"newton.{leg}"] = rounds_to_target(
+                torch, api, newton_spec(
+                    *args, dict(BENCH_KW, redundancy=BENCH_REDUNDANCY),
+                    BENCH_W, BENCH_MAX_ROUNDS["newton"], pool=pool,
+                    mode="drop_slowest", drop_frac=8 / BENCH_W,
+                    iter_smoothing=True),
+                problems.make("newton_sketch", device=dev,
+                              redundancy=BENCH_REDUNDANCY, **BENCH_KW),
+                pn.full_grad, target)
+        legs[dev, "admm.clean"] = rounds_to_target(
+            torch, api, newton_spec(
+                *args, BENCH_KW, BENCH_W, BENCH_MAX_ROUNDS["admm"],
+                problem="logreg_l2", iter_smoothing=True),
+            problems.make("logreg_l2", device=dev, **BENCH_KW), pn.full_grad,
+            target)
+    for leg in ("newton.clean", "newton.straggler", "admm.clean"):
+        if legs["cuda", leg][0] != legs["cpu", leg][0]:
+            fail(f"bench_newton {leg}: {legs['cuda', leg][0]} rounds to "
+                 f"target on the card, {legs['cpu', leg][0]} on the CPU")
+    if legs["cuda", "newton.straggler"][0] != legs["cuda", "newton.clean"][0]:
+        fail("bench_newton: the coded straggler leg's rounds differ from the "
+             "clean leg's")
+    if lv.LAUNCHES != {"logistic": 0, "hinge": 0} or st.LAUNCHES[
+            "soft_threshold"] != 0:
+        fail(f"the second-order runs launched an ADMM kernel: {lv.LAUNCHES}"
+             f", {st.LAUNCHES}")
+    say("[3] bench_newton's configuration (n=1024, d=64, W=64, float32), "
+        "rounds to 1e-3 of the gradient norm, card = CPU: " + "; ".join(
+            f"{leg} {legs['cuda', leg][0]} (sim {legs['cuda', leg][1]:.3f} "
+            f"s, ${legs['cuda', leg][2]:.6f}; baselines.json "
+            f"{anchors[leg + '.rounds_to_target']:g})"
+            for leg in ("newton.clean", "newton.straggler", "admm.clean")))
+
+
+def spy_newton(torch, problem, plan, parts, messages_cls):
+    """Time the round's parts on these instances (and on every
+    ``messages_cls``, the RoundMessages class, patched at class level so
+    that no round's messages are kept alive by a reference cycle; the
+    caller restores ``messages_cls.__getitem__``): each call adds its
+    synchronized wall to ``parts[name]`` — "sketch" (margins, the sketch of
+    every block, the gradient shards), "grams" (the messages read: each a
+    Gram product over its blocks' rows, the coding; "rows" counts them),
+    "decode" (the whole decode, grams included), "solve", "line_search".
+    ``parts`` also receives the decode's (total, n_used, responders) and
+    the line search's (alpha, accepted, evaluations)."""
+    sync = torch.cuda.synchronize
+
+    def timed(name, fn):
+        def wrapped(*a, **k):
+            sync()
+            t0 = time.time()
+            out = fn(*a, **k)
+            sync()
+            parts[name] = parts.get(name, 0.0) + time.time() - t0
+            return out
+        return wrapped
+
+    sketch = timed("sketch", problem.round_messages_all)
+    decode = timed("decode", plan.decode_sum)
+    line_search = timed("line_search", problem._line_search)
+
+    row = timed("grams", messages_cls.__getitem__)
+
+    def counted(msgs, w):
+        parts["rows"] = parts.get("rows", 0) + 1
+        return row(msgs, w)
+
+    def decode_sum(responders, messages):
+        out = decode(responders, messages)
+        parts["decoded"] = (*out, [int(w) for w in responders])
+        return out
+
+    def searched(*a):
+        out = line_search(*a)
+        parts["searched"] = out
+        return out
+
+    problem.round_messages_all = sketch
+    messages_cls.__getitem__ = counted
+    plan.decode_sum = decode_sum
+    problem._newton_direction = timed("solve", problem._newton_direction)
+    problem._line_search = searched
+
+
+def newton_bounds(plan, n_rows, nnz, d, n_reps, n_evals):
+    """Each part's least time (ms, by), from shapes: bytes over the HBM rate
+    or operations over the peak rate of their type."""
+    W, br = plan.n_tasks, plan.block_rows
+    L = (d + d * d) * 4
+    rows_read = n_reps * plan.blocks_per_task() * br
+    return {
+        # rows (idx int64, vals, b), buckets int64 and signs per block in;
+        # the sketched blocks and the gradient shards out
+        "sketch": bound_ms(nnz * 12 + n_rows * 4 + W * n_rows * 12
+                           + (W * br * d + W * d) * 4, 0),
+        # a Gram product over each read message's rows (float32, no TF32)
+        "grams": bound_ms(W * br * d * 4 + n_reps * L,
+                          2.0 * rows_read * d * d),
+        # the messages read once, the total written once
+        "decode": bound_ms((n_reps + 1) * L, n_reps * (d + d * d)),
+        # LU and two triangular solves of the float64 d x d system
+        "solve": bound_ms(d * d * 8 * 2, 2 / 3 * d ** 3 + 2 * d * d,
+                          F64_OPS_PER_S),
+        # each objective reads the float64 rows and z once
+        "line_search": bound_ms(n_evals * (nnz * 16 + n_rows * 8 + d * 8),
+                                n_evals * 4 * nnz),
+    }
+
+
+def host_copies(torch, run, path: Path):
+    """Run ``run()`` under the profiler: (its result, the byte counts of its
+    device-to-host copies, or None when the profiler recorded no copy)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = run()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text()).get("traceEvents", [])
+    path.unlink()
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"]
+    if not copies:
+        return out, None
+    return out, [int(e.get("args", {}).get("bytes", 0)) for e in copies
+                 if "DtoH" in e.get("name", "")]
+
+
+def phase_newton(torch, api, problems, rt, AdmmOptions, lv, st, rows,
+                 device="cuda"):
+    """Phase 8: the Newton path at the paper's size under sync, then
+    replicated (r = 2), then sync again, through ``api.run``; each round's
+    wall split into its parts beside their bounds; the decoded Hessian of
+    rounds 1 and 3 against a float64 oracle of the full stack, with the
+    control; ``rows`` are phase 4's sparse shards when it ran."""
+    tag = "[8]"
+    sync = torch.cuda.synchronize
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lv.reset_launches()
+    st.reset_launches()
+    say(f"{tag} {nvidia_smi('name,power.limit')}; device memory in use "
+        f"before the phase: {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    d, W = NEWTON_KW["n_features"], NEWTON_W
+    problem = problems.make("newton_sketch", device=device, **NEWTON_KW)
+    t0 = time.time()
+    if rows:
+        problem._shard_cache[(0, 1)] = tuple(
+            torch.cat(leaf) for leaf in zip(*(rows[w, PAPER_W]
+                                              for w in range(PAPER_W))))
+        how = "phase 4's shards, concatenated"
+    else:
+        how = "generated"
+    idx, vals, b = problem._rows()
+    sync()
+    t_rows = time.time() - t0
+    t0 = time.time()
+    plan = problem._plan(W)
+    plan._maps(idx.device)
+    sync()
+    t_plan = time.time() - t0
+    n_rows, nnz = idx.shape[0], idx.numel()
+    say(f"{tag} newton_sketch at the paper's size: {n_rows} x {d} rows "
+        f"({nnz} nonzeros, {how}) in {t_rows:.2f} s; the plan for W={W} "
+        f"({plan.n_blocks} + {plan.redundancy} blocks of {plan.block_rows} "
+        f"rows, coded with r = {plan.redundancy + 1}) built and on the card "
+        f"in {t_plan:.2f} s")
+
+    runs, records, parts = {}, {}, {}
+    row = problems.RoundMessages.__getitem__
+    spy_newton(torch, problem, plan, parts, problems.RoundMessages)
+    for label, mode in (("sync", "sync"), ("replicated", "replicated"),
+                        ("sync again", "sync")):
+        rounds, t_last = [], [0.0]
+
+        def on_round(m, _label=label, _rounds=rounds):
+            sync()
+            now = time.time()
+            total, n_used, resp = parts.pop("decoded")
+            rec = dict(wall=now - t_last[0], n_resp=len(resp),
+                       dropped=sorted(set(range(W)) - set(resp)),
+                       searched=parts.pop("searched"), **{
+                           k: parts.pop(k, 0.0) for k in (
+                               "sketch", "grams", "decode", "solve",
+                               "line_search", "rows")})
+            if _label == "sync" and m.k in (1, NEWTON_ROUNDS):
+                rec["total"], rec["n_used"] = total, n_used
+            _rounds.append(rec)
+            t_last[0] = now
+
+        spec = newton_spec(api, rt, AdmmOptions, NEWTON_KW, W, NEWTON_ROUNDS,
+                           mode=mode, engine="batched", replication=2)
+
+        def go(_spec=spec, _on_round=on_round):
+            sync()
+            t_last[0] = time.time()
+            return api.run(_spec, problem=problem, on_round=_on_round)
+
+        if label == "sync again":
+            res, copies = host_copies(torch, go,
+                                      ROOT / "build" / "newton_trace.json")
+        else:
+            res = go()
+        if label == "sync":
+            peak = torch.cuda.max_memory_allocated() / 1e9
+        runs[label], records[label] = res, rounds
+        for rec, m in zip(rounds, res.history):
+            alpha, accepted, n_evals = rec["searched"]
+            bounds = newton_bounds(plan, n_rows, nnz, d, rec["rows"], n_evals)
+            rest = (rec["wall"] - rec["sketch"] - rec["decode"]
+                    - rec["solve"] - rec["line_search"])
+            split = "; ".join(
+                f"{name} {t:.3f} (bound {bounds[key][0] / 1e3:.5f}, "
+                f"{bounds[key][1]})" for name, key, t in (
+                    ("sketch", "sketch", rec["sketch"]),
+                    (f"Grams and coding of {rec['rows']} messages", "grams",
+                     rec["grams"]),
+                    ("decode", "decode", rec["decode"] - rec["grams"]),
+                    ("float64 solve", "solve", rec["solve"]),
+                    (f"line search of {n_evals} objective calls",
+                     "line_search", rec["line_search"])))
+            say(f"{tag} {label} round {m.k}: wall {rec['wall']:.3f} s = "
+                f"{split}; rest {rest:.3f}; {rec['n_resp']} responders "
+                f"(dropped {rec['dropped']}); r_norm {m.r_norm!r}, s_norm "
+                f"{m.s_norm!r}, alpha {alpha:g}, Armijo accepted {accepted}")
+    problems.RoundMessages.__getitem__ = row
+    launches = (dict(lv.LAUNCHES), dict(st.LAUNCHES))
+
+    def keys(label):
+        return [(m.r_norm, m.s_norm) for m in runs[label].history]
+
+    for label in ("replicated", "sync again"):
+        if keys(label) != keys("sync") or (
+                runs[label].z.tobytes() != runs["sync"].z.tobytes()):
+            fail(f"{tag} the {label} run is not bitwise equal to the sync "
+                 f"run: {keys(label)} against {keys('sync')}")
+    rs = [m.r_norm for m in runs["sync"].history]
+    for label, recs in records.items():
+        if not all(rec["searched"][1] for rec in recs):
+            fail(f"{tag} {label}: the Armijo test rejected every trial in a "
+                 f"round")
+    if not all(b < a for a, b in zip(rs, rs[1:])):
+        fail(f"{tag} r_norm does not fall in every round: {rs}")
+    if not all(math.isfinite(v) for v in runs["sync"].z.tolist()):
+        fail(f"{tag} z is not finite")
+    if any(launches[0].values()) or launches[1]["soft_threshold"]:
+        fail(f"{tag} the phase launched an ADMM kernel: {launches}")
+    if not peak < NEWTON_PEAK_GB:
+        fail(f"{tag} peak device memory {peak:.2f} GB (limit "
+             f"{NEWTON_PEAK_GB:g})")
+    if copies is None:
+        copy_note = ("the profiler recorded no device copy: the host copies "
+                     "are not measured")
+    else:
+        if copies and max(copies) > HOST_COPY_LIMIT:
+            fail(f"{tag} a device-to-host copy of {max(copies)} bytes in a "
+                 f"Newton run (limit {HOST_COPY_LIMIT})")
+        copy_note = (f"device-to-host copies in the profiled run: "
+                     f"{len(copies)}, {sum(copies)} bytes in all, the largest "
+                     f"{max(copies, default=0)} bytes (limit "
+                     f"{HOST_COPY_LIMIT})")
+    say(f"{tag} sync, replicated (r = 2) and sync again: every round's "
+        f"r_norm and s_norm and the final z bitwise equal; r_norm falls in "
+        f"every round ({', '.join(f'{r:.6g}' for r in rs)}), Armijo accepts "
+        f"every step; margin and z-update launches {launches}; peak device "
+        f"memory in the sync run {peak:.2f} GB (limit {NEWTON_PEAK_GB:g}); "
+        f"{copy_note}")
+
+    # the decoded Hessians against a float64 oracle of the full stack
+    sched = runs["sync"].scheduler
+    zs = {1: torch.zeros(d, device=idx.device), NEWTON_ROUNDS: sched.z_prev}
+    kept = {k: (rec["total"], rec["n_used"]) for k, rec in
+            enumerate(records["sync"], 1) if "total" in rec}
+    del runs, records, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    idx64, vals64, b64 = problem._data64()
+
+    def oracle(z):
+        margins = -b64 * torch.sum(vals64 * z.double()[idx64], dim=-1)
+        sig = torch.sigmoid(margins)
+        return plan.gram((idx64, vals64), weights=torch.sqrt(sig * (1 - sig)),
+                         n_cols=d)
+
+    def rel_fro(a, ref):
+        return float(torch.linalg.matrix_norm(a - ref)
+                     / torch.linalg.matrix_norm(ref))
+
+    gaps = {}
+    for k, (total, n_used) in kept.items():
+        sync()
+        t0 = time.time()
+        ref = oracle(zs[k])
+        sync()
+        t_oracle = time.time() - t0
+        gaps[k] = rel_fro(total[d:].view(d, d).double() / n_used, ref)
+        if k == 1:
+            # the same round again: the FRS twin of worker 0 carries its
+            # message, so a decode without worker 0 equals the run's bit for
+            # bit; the control drops block 0 without the code
+            msgs, _ = problem.round_messages_all(zs[k], W)
+            twin, _ = problem.decode(msgs, list(range(1, W)), W)
+            if not torch.equal(twin, total):
+                fail(f"{tag} the decode without worker 0 differs from the "
+                     f"run's decode of all {W}")
+            SA = msgs.SA[1:].reshape(-1, d)
+            ctrl = rel_fro((SA.T @ SA).double() / (W - 1), ref)
+            del msgs, SA, twin
+        del ref
+        say(f"{tag} round {k}'s decoded Hessian against the float64 oracle "
+            f"(S D^1/2 A)^T (S D^1/2 A) ({t_oracle:.2f} s): relative "
+            f"Frobenius gap {gaps[k]:.3e} (limit {HESS_RTOL:g})")
+    peak_oracle = torch.cuda.max_memory_allocated() / 1e9
+    say(f"{tag} control, the uncoded mean of {W - 1} blocks (block 0 "
+        f"dropped): "
+        f"{ctrl:.3e} against round 1's oracle ({ctrl / HESS_RTOL:.0f} x the "
+        f"limit; must exceed {CONTROL_MARGIN:g} x); peak device memory of "
+        f"the oracles {peak_oracle:.2f} GB")
+    if not all(g <= HESS_RTOL for g in gaps.values()):
+        fail(f"{tag} a decoded Hessian strays from the oracle: {gaps}")
+    if not ctrl > CONTROL_MARGIN * HESS_RTOL:
+        fail(f"{tag} the control passes within {CONTROL_MARGIN:g} x the "
+             f"limit: the check cannot tell a dropped block")
+    del problem, plan, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def time_admm_kernels(torch, src: Path):
     """The margin kernel's median time per call (logistic, paper shape)
     and the z-update's device time per call in a CUDA graph (D = 10 000
@@ -1598,7 +2064,7 @@ def time_admm_kernels(torch, src: Path):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--src", type=Path,
                     help="run no phase: time the margin kernel and the "
@@ -1606,8 +2072,8 @@ def main(argv=None):
                          "and print one JSON line (see time_admm_kernels)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
-    if not phases <= set(range(1, 8)):
-        fail(f"--phases takes phases 1 to 7, got {sorted(phases)}")
+    if not phases <= set(range(1, 9)):
+        fail(f"--phases takes phases 1 to 8, got {sorted(phases)}")
 
     if not (SRC / "repro_torch" / "api.py").is_file():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
@@ -1648,15 +2114,22 @@ def main(argv=None):
     check_margin_spills(build.log("logistic_vjp"))
 
     results = {}
+    t0 = time.time()
     if 2 in phases:
         results.update(phase_parity(torch, lv, st, ref))
         results.update(phase_attention_parity(torch, fa, dec, attention, F))
+        say(f"[2] phase wall {time.time() - t0:.1f} s")
+    t0 = time.time()
     if 3 in phases:
         phase_small(torch, api, SchedulerConfig, AdmmOptions, PoolConfig,
                     lv, st)
         phase_small_modes(torch, api, SchedulerConfig, AdmmOptions,
                           PoolConfig, lv, st)
         phase_small_cluster(torch, api, problems, rt, AdmmOptions, lv, st)
+        say(f"[3] phase wall before the second-order runs "
+            f"{time.time() - t0:.1f} s")
+        phase_small_newton(torch, api, problems, rt, AdmmOptions, lv, st)
+        say(f"[3] phase wall {time.time() - t0:.1f} s")
     kernel_ms = {k: r["ms"] for k, r in results.items()}
     # each main path's launches, read around its own run: kernel -> phase
     # -> count
@@ -1665,15 +2138,19 @@ def main(argv=None):
     # phases 4 and 6's kernel-path runs: round_keys and launch counts, the
     # solo runs phase 7's jobs are held to
     solo, solo_launches = {}, {}
-    for phase in (4, 5, 6, 7):
+    # phase 4's sparse rows, which phase 8 reads when phase 4 ran
+    paper_rows = {}
+    for phase in (4, 5, 6, 7, 8):
         if phase not in phases:
             continue
         gc.collect()
         torch.cuda.empty_cache()
+        t0 = time.time()
         if phase in (4, 6):
-            got, solo[phase] = phase_paper(torch, api, problems,
-                                           SchedulerConfig, lv, st, ref,
-                                           kernel_ms, phase)
+            got, solo[phase] = phase_paper(
+                torch, api, problems, SchedulerConfig, lv, st, ref,
+                kernel_ms, phase, keep_rows=paper_rows if phase == 4
+                else None)
             by_phase["soft_threshold"][str(phase)] = got.pop(
                 "soft_threshold")
             solo_launches[phase] = got
@@ -1685,12 +2162,17 @@ def main(argv=None):
                               kernel_ms)[0]
             for k, n in got.items():
                 by_phase[k]["5"] = n
-        else:
+        elif phase == 7:
             got = phase_cluster(torch, api, problems, rt, lv, st, solo,
                                 solo_launches, kernel_ms)
             for engine, counts in got.items():
                 for k, n in counts.items():
                     by_phase[k][f"7 {engine}"] = n
+        else:
+            phase_newton(torch, api, problems, rt, AdmmOptions, lv, st,
+                         paper_rows)
+            paper_rows.clear()
+        say(f"[{phase}] phase wall {time.time() - t0:.1f} s")
     if not {2, 4, 5, 6, 7} <= phases:
         say(f"phases {sorted(phases)} passed")
         return

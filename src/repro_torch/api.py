@@ -23,11 +23,12 @@ multi-tenant verbs, which queue specs on a shared-pool ``Cluster``
 arrival, ``replay`` a whole ``runtime.loadgen`` trace; ``demand`` is a
 spec's (workers, mem_gb, egress_mbps) vector.
 
-Ported: the first-order workloads (``logreg``, ``svm``, ``lasso``,
-``softmax``, ``logreg_l2``) and ``double_ml``, every barrier mode (sync,
-drop_slowest, replicated, async_), both engines and fan-ins, ω compression
-(topk, qsgd) and the cluster surface.  Not yet: the second-order workload
-``newton_sketch`` (ROADMAP.md, Queue 1).
+Every registered workload of the reference runs here: the first-order
+ones (``logreg``, ``svm``, ``lasso``, ``softmax``, ``logreg_l2``),
+``double_ml`` and the second-order ``newton_sketch``, under every barrier
+mode (sync, drop_slowest, replicated, async_), both engines and fan-ins,
+with ω compression (topk, qsgd), solo or on the cluster.  ``newton_sketch``
+refuses async_, compression and ``kernel="cuda"``, as the reference does.
 """
 from __future__ import annotations
 

@@ -38,10 +38,16 @@ results are widened by the float64 steps around them), and the z-update
 takes the plain float64 prox (``z_nnz`` stays -1), as the reference's
 fused z-update runs only for a float32 ω̄.
 
+Second-order problems (``problem.second_order = True``: newton_sketch)
+route each round through ``run_round_newton``: workers send coded
+Hessian-sketch block messages, the master decodes them and takes a Newton
+step, and the ADMM x/u/ω machinery sits unused.  They refuse ``async_``,
+compression and ``kernel="cuda"`` (no kernel lies on their path; the
+default ``kernel="torch"`` runs it).
+
 ``checkpoint_every`` and ``checkpoint_dir`` are accepted and not read, as
 in the reference, whose scheduler never reads them (only its LM trainer
-writes checkpoints).  Second-order problems are not ported yet and raise
-``NotImplementedError`` (ROADMAP.md, Queue 1).
+writes checkpoints).
 """
 from __future__ import annotations
 
@@ -61,8 +67,6 @@ from repro_torch.runtime.autoscale import AutoscaleConfig, Autoscaler
 from repro_torch.runtime.billing import BillingConfig, BillingMeter
 from repro_torch.runtime.pool import LambdaPool, PoolConfig
 from repro_torch.runtime.reduce import TreeConfig, fanin_drain
-
-_WAITS = "not ported yet; see ROADMAP.md, Queue 1, {!r}"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,11 +120,43 @@ class RoundMetrics(NamedTuple):
     z_nnz: int = -1
 
 
+def _check_second_order(problem, cfg: SchedulerConfig) -> None:
+    """The reference's refusals for a second-order problem: the Newton step
+    needs a consistent, exactly decoded Hessian, and the sketch's
+    redundancy must cover the stragglers the barrier drops."""
+    if cfg.mode == "async_":
+        raise ValueError(
+            "async_ mode is not supported for second-order problems "
+            "(the Newton step needs a consistent decoded Hessian)")
+    if cfg.compress != "none":
+        raise ValueError(
+            "compression is not supported for second-order problems "
+            "(lossy sketch blocks break the exact-decode guarantee)")
+    s = getattr(problem, "redundancy", 0)
+    if cfg.mode == "replicated" and s < cfg.replication - 1:
+        raise ValueError(
+            f"replicated mode with replication={cfg.replication} needs "
+            f"problem redundancy >= {cfg.replication - 1} spare sketch "
+            f"blocks (got {s})")
+    n_drop = int(cfg.drop_frac * cfg.n_workers)
+    if cfg.mode == "drop_slowest" and n_drop > s:
+        raise ValueError(
+            f"drop_slowest would drop {n_drop} blocks but the sketch plan "
+            f"only over-provisions {s} — raise the problem's redundancy or "
+            f"lower drop_frac")
+    if cfg.kernel == "cuda":
+        raise ValueError(
+            "kernel='cuda' fuses the FISTA loss/grad and z-update; "
+            "second-order problems have neither — use kernel='torch'")
+    if cfg.engine == "batched" and not callable(
+            getattr(problem, "round_messages_all", None)):
+        raise ValueError(
+            f"engine='batched' needs the second-order problem to implement "
+            f"round_messages_all (the stacked-block path); "
+            f"{type(problem).__name__} does not")
+
+
 def _check_supported(problem, cfg: SchedulerConfig) -> None:
-    if getattr(problem, "second_order", False):
-        raise NotImplementedError(
-            "second-order problems are " + _WAITS.format(
-                "The second-order path"))
     if cfg.mode not in ("sync", "drop_slowest", "replicated", "async_"):
         raise ValueError(f"unknown mode {cfg.mode!r}")
     if cfg.kernel not in ("torch", "cuda"):
@@ -132,7 +168,9 @@ def _check_supported(problem, cfg: SchedulerConfig) -> None:
     if cfg.engine not in ("loop", "batched"):
         raise ValueError(f"engine must be 'loop' or 'batched', "
                          f"got {cfg.engine!r}")
-    if cfg.engine == "batched" and not (
+    if getattr(problem, "second_order", False):
+        _check_second_order(problem, cfg)
+    elif cfg.engine == "batched" and not (
             callable(getattr(problem, "solve_all", None))
             and getattr(problem, "supports_batched", lambda: True)()):
         raise ValueError(
@@ -158,10 +196,16 @@ class Scheduler:
         self.device = getattr(problem, "device", torch.device("cpu"))
         self.pool = pool if pool is not None else LambdaPool(cfg.pool)
         W, d = cfg.n_workers, problem.n_features
+        self._second_order = bool(getattr(problem, "second_order", False))
         # replicated mode: W physical slots host W/r LOGICAL workers; the
         # r replicas of a logical worker solve the same shard, so first-
-        # responder-wins is exact under any r-1 stragglers or failures
-        self.repl = cfg.replication if cfg.mode == "replicated" else 1
+        # responder-wins is exact under any r-1 stragglers or failures.
+        # Second-order replicated mode keeps W logical workers: sketch
+        # redundancy replaces physical replication (the master decodes the
+        # exact Hessian from the first W-(r-1) responses)
+        self.repl = (cfg.replication
+                     if cfg.mode == "replicated" and not self._second_order
+                     else 1)
         if W % self.repl:
             raise ValueError("replicated mode needs r | W")
         self.n_logical = W // self.repl
@@ -185,9 +229,14 @@ class Scheduler:
         self.codec = OmegaCodec(cfg.compress, d, topk_frac=cfg.topk_frac,
                                 qsgd_bits=cfg.qsgd_bits)
         self.wire_d = cfg.wire_d or d
-        self.msg_bytes = message_bytes(cfg.compress, self.wire_d,
-                                       topk_frac=cfg.topk_frac,
-                                       qsgd_bits=cfg.qsgd_bits)
+        if self._second_order:
+            # the coded block message [g_k | vec(Gram_k)] plus the q slot
+            # every message carries (d+d²+1 f32 dense)
+            self.msg_bytes = 4 * (int(problem.message_floats) + 1)
+        else:
+            self.msg_bytes = message_bytes(cfg.compress, self.wire_d,
+                                           topk_frac=cfg.topk_frac,
+                                           qsgd_bits=cfg.qsgd_bits)
         self.meter = BillingMeter(cfg.billing)
         self._billed_spawns = 0
         self.autoscaler: Optional[Autoscaler] = None
@@ -427,6 +476,102 @@ class Scheduler:
         return m
 
     # ------------------------------------------------------------------
+    def run_round_newton(self) -> RoundMetrics:
+        """One second-order round: coded Hessian-sketch block messages up,
+        a globalized Newton step at the master (``problems/newton_sketch``;
+        the block algebra is ``core/sketch.py``).  The sync family's timing,
+        fan-in and billing apply as they are; the barrier modes map onto
+        sketch semantics:
+
+        * ``sync`` — wait for all W block messages;
+        * ``drop_slowest`` — proceed with the fastest ``W - drop_frac·W``
+          (the problem's redundancy covers the drop);
+        * ``replicated`` — wait for the first ``W - (replication-1)``
+          responses and decode the exact full-sketch Hessian.
+
+        The master reads only the responders' messages, one at a time
+        (``master_step``), so the round's d²-sized messages are never
+        stacked."""
+        cfg = self.cfg
+        W = cfg.n_workers
+        t_comp = np.zeros(W)
+        t_comm = np.zeros(W)
+        inner = np.zeros(W, np.int64)
+        round_start = self.sim_time
+
+        # respawn checks first, in wid order (the same pool-RNG draws for
+        # both engines)
+        extras = np.zeros(W)
+        for wid in range(W):
+            extras[wid] = self._maybe_respawn(wid)
+        if self._engine_batched:
+            msgs, iters_all = self.problem.round_messages_all(self.z, W)
+        else:
+            out = [self.problem.round_message(wid, W, self.z)
+                   for wid in range(W)]
+            msgs = [m for m, _ in out]
+            iters_all = [it for _, it in out]
+        for wid in range(W):
+            inner[wid] = int(iters_all[wid])
+
+        timing_iters = inner.copy()
+        if cfg.iter_smoothing:
+            timing_iters[:] = max(int(np.median(inner)), 1)
+        rx = self.pool.comm_time(4 * self.wire_d)      # dense z downlink
+        tx = self.pool.comm_time(self.msg_bytes)       # block message up
+        arrivals = []
+        for wid in range(W):
+            tc = self.pool.compute_time(
+                self.pool.workers[wid], int(timing_iters[wid]),
+                self.problem.n_samples(wid, W))
+            t_comp[wid] = tc
+            t_comm[wid] = rx + tx
+            arrivals.append((round_start + extras[wid] + rx + tc + tx,
+                             wid))
+
+        if cfg.mode == "drop_slowest":
+            n_wait = W - int(cfg.drop_frac * W)
+            waited = sorted(arrivals)[:n_wait]
+        elif cfg.mode == "replicated":
+            waited = sorted(arrivals)[:W - (cfg.replication - 1)]
+        else:
+            waited = sorted(arrivals)
+
+        master_done = fanin_drain(waited, cfg.fanin, self.pool, cfg.tree,
+                                  self.msg_bytes, W)
+
+        responders = np.asarray(sorted(wid for _, wid in waited), np.int64)
+        z_new, r_norm, s_norm = self.problem.master_step(
+            self.z, msgs, responders, W)
+        self.z_prev, self.z = self.z, z_new.to(self.z.dtype)
+
+        bcast = self.pool.comm_time(4 * self.wire_d)
+        self.sim_time = master_done + bcast
+        round_wall = self.sim_time - round_start
+        t_idle = round_wall - t_comp
+        self.k += 1
+
+        # billing as in run_round: every worker holds its memory for the
+        # whole round, every block uplink + z downlink crosses the
+        # boundary, the coordinator runs throughout
+        self._bill_spawns()
+        self.meter.record_duration(round_wall * W - float(extras.sum()))
+        self.meter.record_master(round_wall)
+        self.meter.record_bytes(W * (self.msg_bytes + 4 * self.wire_d))
+
+        thresh = np.quantile([t for t, _ in arrivals], 0.9)
+        m = RoundMetrics(
+            k=self.k, sim_time=self.sim_time, r_norm=r_norm, s_norm=s_norm,
+            rho=self.rho, t_comp=t_comp, t_comm=t_comm, t_idle=t_idle,
+            inner_iters=inner, n_respawns=self.n_respawns,
+            slowest10=np.array([t >= thresh for t, _ in arrivals]),
+            round_wall_s=round_wall,
+            t_fanin_wait=master_done - max(t for t, _ in waited),
+            cost_usd=self.meter.total_usd(), n_workers=W, z_nnz=-1)
+        self.history.append(m)
+        return m
+
+    # ------------------------------------------------------------------
     def run_async(self, max_updates: int,
                   on_round: Optional[Callable] = None) -> List[RoundMetrics]:
         """Bounded-staleness async ADMM: the master updates z every
@@ -537,7 +682,8 @@ class Scheduler:
                              "async_ paces itself per arrival (run_async)")
         if cfg.autoscale.policy != "off" and self.autoscaler is None:
             self.autoscaler = Autoscaler(cfg.autoscale, quantum=self.repl)
-        m = self.run_round()
+        m = (self.run_round_newton() if self._second_order
+             else self.run_round())
         if on_round:
             on_round(m)
         if (m.r_norm <= cfg.admm.eps_primal

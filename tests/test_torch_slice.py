@@ -359,12 +359,18 @@ def test_ported_modes_run(cfg, kw, tmp_path):
 
 
 def test_second_order_problems_raise():
+    """Second-order problems run since the second-order slice; what they
+    cannot take raises: the fused kernels, async_, compression."""
     class _Newton:
         second_order = True
         n_features = 4
+        redundancy = 1
         dtype = torch.float32
-    with pytest.raises(NotImplementedError, match="second-order"):
-        t_api.Scheduler(_Newton(), SchedulerConfig(n_workers=2))
+    for cfg, msg in ((dict(kernel="cuda"), "second-order"),
+                     (dict(mode="async_"), "second-order"),
+                     (dict(compress="topk"), "second-order")):
+        with pytest.raises(ValueError, match=msg):
+            t_api.Scheduler(_Newton(), SchedulerConfig(n_workers=2, **cfg))
 
 
 def test_entry_points_default_to_the_card():
