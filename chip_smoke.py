@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases 1,2,6  # the kernels and svm at size
     python3 chip_smoke.py --phases 1,2,7  # the kernels and the cluster
     python3 chip_smoke.py --phases 1,8    # the second-order path at size
+    python3 chip_smoke.py --phases 1,9    # LM training
     python3 chip_smoke.py --src OTHER/src # time another checkout's ADMM
                                           # kernels, nothing else
 
@@ -79,9 +80,27 @@ caught):
      the third run); the decoded Hessians of rounds 1 and 3 against a
      float64 oracle of the full stack, with a control (one block dropped
      without the code) that must miss the limit by over 100x;
+  9. consensus-ADMM LM training (``core/trainer.py``): (a) reduced
+     granite_8b in float32, W=4, K=2, prox l1, 3 rounds, on the card
+     against the CPU from one state, with the z-update launched once per
+     leaf per round, the flash kernel never, every leaf's gradient
+     nonzero, and a repeat on the card bit for bit; then the same in
+     bf16 at d_model 256, W=2, K=4, held by relative L2 gaps; (b)
+     granite_8b at full width in bf16 with its depth cut to 4 layers,
+     W=2, K=4, batch 8 x 1024 tokens, remat, 3 rounds: rounds 1 and 3
+     timed as they run (wall, tokens/s), round 2 under a timing spy that
+     splits it into local forward+backward (TFLOP/s against the bf16
+     peak), augmented gradients, Adam, dual ascent, consensus mean,
+     z-update (its launches) and the rest, and keeps the z-update's
+     inputs on the two largest leaf sizes, held against its plain version
+     after the round; peak memory and nnz(z)/P; the loss must fall; then
+     3 AdamW baseline steps at the same config; (c)
+     ``launch.train.main --preset 100m``, 4 rounds straight equal to 2
+     rounds and ``--resume`` for 2 more, bit for bit, for admm and sgd;
 then the kernels line {"kernels": [...]} (when phases 2, 4, 5, 6 and 7
 ran; each entry names the kernel's design in "body" and its launches on
-each main path in "launches_by_phase") and the last line
+each main path in "launches_by_phase", phase 9's z-update launches among
+them when it ran) and the last line
 {"ok": true, "device": {...}}.
 
 It imports torch and the port only.  Without a CUDA device, or outside a
@@ -96,6 +115,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2030,6 +2050,431 @@ def phase_newton(torch, api, problems, rt, AdmmOptions, lv, st, rows,
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 9: consensus-ADMM LM training
+# ---------------------------------------------------------------------------
+
+# (a) reduced granite_8b in float32 on the card against the CPU from one
+# state: W=4, K=2, global batch 8, seq 16, prox l1, adapt_rho on, 3 rounds.
+# Held at the CPU tests' tolerances against the reference
+# (tests/test_torch_train.py): leaves at TOL, the metrics at 1e-5 (float32
+# in other summation orders, through Adam's division by sqrt(v))
+TRAIN_TOL = dict(rtol=1e-4, atol=1e-5)
+TRAIN_METRIC_RTOL = 1e-5
+TRAIN_SMALL = dict(W=4, K=2, batch=8, seq=16, rounds=3, lam=1e-4)
+# ... and in bf16 at test_round_step_in_bf16_tracks_jax's configuration
+# (d_model 256, W=2, K=4, seq 64, l1 at 1e-5), held to that test's limits:
+# one bf16 ulp of x moves the next Adam step, so leaves are held by their
+# relative L2 gap (u's against x's norm), the metrics at 1e-3 relative
+TRAIN_BF16_CFG = dict(dtype="bfloat16", d_model=256, n_heads=8, n_kv_heads=2,
+                      head_dim=32, d_ff=512, vocab_size=4096)
+TRAIN_BF16 = dict(W=2, K=4, batch=8, seq=64, rounds=3, lam=1e-5)
+TRAIN_BF16_L2 = {"x": 5e-3, "u": 5e-3, "z": 5e-3, "opt": 3e-2}
+TRAIN_BF16_METRIC_RTOL = 1e-3
+# (b) granite_8b at full width (d 4096, 32 heads and 8 KV heads of 128,
+# d_ff 14 336, vocab 49 152, bf16), its depth cut to 4 of 36 layers so
+# that the W=2 state (about 51 GB) fits one card beside remat's
+# activations; then the AdamW baseline at the same config
+TRAIN_FULL = dict(layers=4, W=2, K=4, batch=8, seq=1024, rounds=3, lam=1e-5,
+                  sgd_steps=3)
+TRAIN_PEAK_GB = 76.0
+# (c) the train CLI: 4 rounds straight against 2, then --resume for 2 more
+TRAIN_CLI = ["--preset", "100m", "--steps"]
+
+
+def train_rounds(torch, trainer, lm_data, configs, cfg, state, p, device):
+    """``p["rounds"]`` rounds of make_round_step from ``state`` on the
+    batches of steps 0, 1, ...; returns (state, [metrics as floats])."""
+    ccfg = trainer.ConsensusConfig(n_workers=p["W"], local_steps=p["K"],
+                                   prox="l1", lam=p["lam"], adapt_rho=True)
+    step = trainer.make_round_step(cfg, ccfg)
+    shape = configs.ShapeConfig("train", p["seq"], p["batch"], "train")
+    trace = []
+    for k in range(p["rounds"]):
+        gb = lm_data.batch_for(cfg, shape, k, device=device)
+        batch = {n: v.reshape((p["W"], p["batch"] // p["W"]) + v.shape[1:])
+                 for n, v in gb.items()}
+        state, m = step(state, batch)
+        trace.append({n: float(v) for n, v in m.items()})
+    return state, trace
+
+
+def hold_train(torch, got, want, name):
+    """The worst |got - want| / (atol + rtol |want|) over leaves; fails
+    above 1."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.detach().double().cpu(), w.detach().double().cpu()
+        r = float(((g - w).abs() / (TRAIN_TOL["atol"]
+                                    + TRAIN_TOL["rtol"] * w.abs())).max())
+        if not r <= 1.0:
+            fail(f"{name}: leaf {i} off by {r:.3g} x the tolerance "
+                 f"{TRAIN_TOL}")
+        worst = max(worst, r)
+    return worst
+
+
+def bf16_gaps(torch, tree, got, want):
+    """Each state field's worst relative L2 gap between two ConsensusStates
+    (u's against x's norm, as test_round_step_in_bf16_tracks_jax holds
+    them); fails above TRAIN_BF16_L2."""
+    worst = {}
+    for field in got._fields:
+        scale = getattr(want, "x" if field == "u" else field)
+        for i, (a, b, x) in enumerate(zip(tree.leaves(getattr(got, field)),
+                                          tree.leaves(getattr(want, field)),
+                                          tree.leaves(scale))):
+            a, b, x = (t.detach().double().cpu() for t in (a, b, x))
+            gap = float(torch.linalg.vector_norm(a - b)) / max(
+                float(torch.linalg.vector_norm(x)), 1e-30)
+            if not gap <= TRAIN_BF16_L2.get(field, 5e-3):
+                fail(f"[9a] bf16 {field} leaf {i}: relative L2 gap {gap:.3e}"
+                     f" above {TRAIN_BF16_L2.get(field, 5e-3)}")
+            worst[field] = max(worst.get(field, 0.0), gap)
+    return worst
+
+
+def card_cpu_runs(torch, trainer, lm_data, configs, tree, st, cfg, p):
+    """p["rounds"] rounds from one state drawn on the CPU, run on the CPU,
+    the card and the card again: {name: (state, trace)}; checks the
+    z-update launches (leaves x rounds on the card, 0 on the CPU) and that
+    the repeat equals the first card run bit for bit."""
+    base = trainer.init_state(cfg, trainer.ConsensusConfig(n_workers=p["W"]),
+                              generator=torch.Generator().manual_seed(0),
+                              device="cpu")
+    n_z = len(tree.leaves(base.z)) * p["rounds"]
+    runs = {}
+    for name, dev in (("cpu", "cpu"), ("card", "cuda"), ("repeat", "cuda")):
+        st.reset_launches()
+        runs[name] = train_rounds(
+            torch, trainer, lm_data, configs, cfg,
+            tree.tree_map(lambda t: t.to(dev, copy=True), base), p, dev)
+        launches = st.LAUNCHES["soft_threshold"]
+        if launches != (0 if dev == "cpu" else n_z):
+            fail(f"[9a] {cfg.dtype} {name}: {launches} z-update launches, "
+                 f"expected {0 if dev == 'cpu' else n_z}")
+    (card, tg), (rep, tr) = runs["card"], runs["repeat"]
+    spread = max(float((a.double() - b.double()).abs().max())
+                 for a, b in zip(tree.leaves(rep), tree.leaves(card)))
+    if spread != 0.0 or tr != tg:
+        fail(f"[9a] {cfg.dtype}: the repeat on the card differs: spread "
+             f"{spread}")
+    return runs, n_z, spread
+
+
+def hold_metrics(trace, want, rtol, atol, tag):
+    for k, (mg, mc) in enumerate(zip(trace, want)):
+        for n in mc:
+            if abs(mg[n] - mc[n]) > rtol * abs(mc[n]) + atol:
+                fail(f"{tag} round {k} {n}: card {mg[n]!r}, CPU {mc[n]!r}")
+
+
+def phase_train_small(torch, configs, trainer, lm_data, model, tree, st, fa):
+    """(a): the card against the CPU in float32 and in bf16, their
+    launches, every leaf's gradient, and a repeat on the card bit for
+    bit."""
+    p = TRAIN_SMALL
+    cfg = configs.reduced(configs.get_config("granite_8b"))
+    # every parameter leaf gets a nonzero gradient on the card
+    z = model.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                          device="cpu")
+    ps, build = tree.flatten(tree.tree_map(lambda t: t.cuda(), z))
+    req = [t.requires_grad_() for t in ps]
+    shape = configs.ShapeConfig("train", p["seq"], p["batch"], "train")
+    fa.reset_launches()
+    loss = model.loss_fn(build(req), cfg,
+                         lm_data.batch_for(cfg, shape, 0, device="cuda"))[0]
+    dead = [i for i, g in enumerate(torch.autograd.grad(loss, req))
+            if not int(torch.count_nonzero(g))]
+    loss = loss.detach()
+    if dead or not math.isfinite(float(loss)):
+        fail(f"[9a] loss {float(loss)}; leaves {dead} got no gradient")
+    runs, n_z, spread = card_cpu_runs(torch, trainer, lm_data, configs, tree,
+                                      st, cfg, p)
+    (cpu, tc), (card, tg) = runs["cpu"], runs["card"]
+    hold_metrics(tg, tc, TRAIN_METRIC_RTOL, 1e-7, "[9a]")
+    worst = hold_train(torch, tree.leaves(card), tree.leaves(cpu),
+                       "[9a] card vs CPU")
+    n_leaves = n_z // p["rounds"]
+    say(f"[9a] reduced granite_8b (float32, W={p['W']}, K={p['K']}, batch "
+        f"{p['batch']}, seq {p['seq']}, l1, 3 rounds): card vs CPU worst "
+        f"{worst:.3f} x tolerance {TRAIN_TOL}; loss "
+        f"{[round(m['loss'], 5) for m in tg]}, rho "
+        f"{[m['rho'] for m in tg]}; z-update launches {n_z} (= "
+        f"{n_leaves} leaves x {p['rounds']}), flash 0; every "
+        f"leaf's gradient nonzero; repeat spread {spread}")
+
+    # bf16: cuBLAS's bf16 products, the bf16 embedding backward,
+    # grad_downcast and the bf16 z cast, against the CPU
+    p = TRAIN_BF16
+    cfg = configs.reduced(configs.get_config("granite_8b"), **TRAIN_BF16_CFG)
+    runs, n_z, spread = card_cpu_runs(torch, trainer, lm_data, configs, tree,
+                                      st, cfg, p)
+    (cpu, tc), (card, tg) = runs["cpu"], runs["card"]
+    hold_metrics(tg, tc, TRAIN_BF16_METRIC_RTOL, 0.0, "[9a] bf16")
+    gaps = bf16_gaps(torch, tree, card, cpu)
+    metric_gap = max(abs(mg[n] - mc[n]) / abs(mc[n]) for mg, mc in
+                     zip(tg, tc) for n in mc if mc[n])
+    if fa.LAUNCHES["flash_attention"]:
+        fail(f"[9a] training launched the flash kernel "
+             f"{fa.LAUNCHES['flash_attention']} times")
+    say(f"[9a] reduced granite_8b in bf16 (d_model {cfg.d_model}, W={p['W']}"
+        f", K={p['K']}, batch {p['batch']}, seq {p['seq']}, l1, 3 rounds): "
+        f"card vs CPU relative L2 gaps "
+        f"{ {k: float(f'{v:.3e}') for k, v in gaps.items()} } (limits "
+        f"{TRAIN_BF16_L2}), metrics worst {metric_gap:.3e} (limit "
+        f"{TRAIN_BF16_METRIC_RTOL:g}); loss "
+        f"{[round(m['loss'], 5) for m in tg]}; z-update launches {n_z}, "
+        f"flash 0; repeat spread {spread}")
+
+
+def train_flops(cfg, B, S):
+    """(bf16 FLOP, float32 FLOP) of one worker step under remat: the body's
+    matmuls 8·N·T (forward, recomputed forward, backward), the float32
+    head 6·N_head·T, and the plain attention's masked full square,
+    4·B·S²·H·hd a forward, four times over."""
+    d, T = cfg.d_model, B * S
+    per_layer = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.hd \
+        + cfg.n_heads * cfg.hd * d + 3 * d * cfg.d_ff
+    attn = 4 * B * S * S * cfg.n_heads * cfg.hd
+    return (8 * cfg.n_layers * per_layer * T,
+            6 * cfg.vocab_size * d * T + 4 * cfg.n_layers * attn)
+
+
+def spy_train(torch, trainer, ops, parts, kept, sizes):
+    """Wrap the round's parts (module functions, restored by the returned
+    callable): each call adds its synchronized wall to ``parts[name]``.
+    The z-update kernel's inputs and outputs for the first leaf of each
+    size in ``sizes`` go into ``kept[size]``, outside the timing."""
+    sync = torch.cuda.synchronize
+    saved = []
+
+    def timed(module, attr, name, after=None):
+        fn = getattr(module, attr)
+        saved.append((module, attr, fn))
+
+        def wrapped(*a, **k):
+            sync()
+            t0 = time.time()
+            out = fn(*a, **k)
+            sync()
+            parts[name] = parts.get(name, 0.0) + time.time() - t0
+            parts[name + "_n"] = parts.get(name + "_n", 0) + 1
+            if after is not None:
+                after(a, out)
+            return out
+        setattr(module, attr, wrapped)
+
+    def keep(args, out):
+        if args[0].numel() in sizes:
+            kept.setdefault(args[0].numel(), (args, out))
+    for attr, name in (("dual_ascent", "dual"), ("value_and_grads", "fwd_bwd"),
+                       ("augment", "augment"), ("omega_bar", "mean"),
+                       ("z_update", "z_update")):
+        timed(trainer, attr, name)
+    timed(trainer.opt_mod, "adamw_update", "adam")
+    timed(ops, "fused_z_update", "z_kernel", keep)
+
+    def restore():
+        for module, attr, fn in saved:
+            setattr(module, attr, fn)
+    return restore
+
+
+def check_kept_z(torch, ref, kept):
+    """The z-update kernel's outputs on the training leaves kept by the
+    spy against its plain version on the same inputs: z and ||dz||^2 at
+    PARITY_RTOL, nnz exact.  Returns, per size, the worst error and each
+    side's ||dz||^2 relative to the float32 squares summed in float64."""
+    errs = {}
+    for size, ((omega, z_old, thr), (z_k, s_k, n_k)) in sorted(kept.items()):
+        z_p, s_p, n_p = ref.soft_threshold_ref(
+            omega, z_old, torch.tensor(thr, dtype=torch.float32,
+                                       device="cuda"))
+        if int(n_k) != int(n_p):
+            fail(f"[9b] z-update on a {size}-element leaf: nnz {int(n_k)} "
+                 f"!= plain {int(n_p)}")
+        truth = float(torch.sum((z_p - z_old).square().double()))
+        errs[size] = dict(
+            max_abs_err=max(
+                max_err(torch, z_k, z_p, f"[9b] z-update z ({size} elements)"),
+                max_err(torch, s_k, s_p,
+                        f"[9b] z-update ssq ({size} elements)")),
+            ssq_rel_kernel=abs(float(s_k) - truth) / truth,
+            ssq_rel_plain=abs(float(s_p) - truth) / truth)
+        del z_p, s_p, n_p
+    return errs
+
+
+def phase_train_full(torch, configs, trainer, lm_data, model, opt, tree, ops,
+                     st, fa, ref):
+    """(b): granite_8b at full width, depth cut, W=2 ADMM rounds then
+    AdamW steps; returns the z-update launches of the ADMM run.  Rounds 1
+    and 3 run as they are and give the wall and tokens/s; round 2 runs
+    under the timing spy, which splits it into parts and keeps the
+    z-update's inputs on the two largest leaf sizes, held against the
+    plain version after the round."""
+    p = TRAIN_FULL
+    cfg = dataclasses.replace(configs.get_config("granite_8b"),
+                              n_layers=p["layers"])
+    P = cfg.param_count()
+    Bw = p["batch"] // p["W"]
+    bf16, f32 = train_flops(cfg, Bw, p["seq"])
+    step_bound = bf16 / BF16_OPS_PER_S + f32 / F32_OPS_PER_S
+    n_steps = p["W"] * p["K"]
+    say(f"[9b] {cfg.name} at full width (d {cfg.d_model}, {cfg.n_heads} "
+        f"heads / {cfg.n_kv_heads} KV of {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}), {cfg.n_layers} of 36 layers: "
+        f"{P / 1e9:.4f}e9 parameters; a worker step {bf16 / 1e12:.2f} TFLOP "
+        f"bf16 + {f32 / 1e12:.2f} TFLOP float32, bound {step_bound * 1e3:.1f}"
+        f" ms")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    ccfg = trainer.ConsensusConfig(n_workers=p["W"])
+    state = trainer.init_state(
+        cfg, ccfg, generator=torch.Generator(device="cuda").manual_seed(0),
+        device="cuda")
+    torch.cuda.synchronize()
+    say(f"[9b] init_state (W={p['W']}): {time.time() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    ccfg = trainer.ConsensusConfig(n_workers=p["W"], local_steps=p["K"],
+                                   prox="l1", lam=p["lam"], adapt_rho=True)
+    step = trainer.make_round_step(cfg, ccfg)
+    shape = configs.ShapeConfig("train", p["seq"], p["batch"], "train")
+    sizes = sorted({t.numel() for t in tree.leaves(state.z)})[-2:]
+    kept = {}
+    st.reset_launches()
+    fa.reset_launches()
+    losses = []
+    tokens = n_steps * Bw * p["seq"]
+    for k in range(p["rounds"]):
+        gb = lm_data.batch_for(cfg, shape, k, device="cuda")
+        batch = {n: v.reshape((p["W"], Bw) + v.shape[1:])
+                 for n, v in gb.items()}
+        spied = k == 1
+        parts = {}
+        restore = spy_train(torch, trainer, ops, parts, kept, sizes) \
+            if spied else (lambda: None)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        finally:
+            restore()
+        m = {n: float(v) for n, v in m.items()}
+        losses.append(m["loss"])
+        tail = (f"loss {m['loss']:.5f}, r {m['r_norm']:.5g}, s "
+                f"{m['s_norm']:.5g}, rho {m['rho']:.5g}, nnz(z)/P "
+                f"{m['z_nnz'] / P:.6f}")
+        if not spied:
+            say(f"[9b] round {k + 1}: wall {wall:.3f} s, {tokens / wall:.0f} "
+                f"tokens/s, {(bf16 + f32) * n_steps / wall / 1e12:.1f} "
+                f"TFLOP/s over the round ({n_steps} worker steps; bound "
+                f"{step_bound * n_steps:.3f} s); {tail}")
+            continue
+        named = ("fwd_bwd", "augment", "adam", "dual", "mean", "z_update")
+        rest = wall - sum(parts[n] for n in named)
+        tflops = (bf16 + f32) * parts["fwd_bwd_n"] / parts["fwd_bwd"] / 1e12
+        say(f"[9b] round {k + 1}, split by the timing spy (a synchronize "
+            f"around each part): wall {wall:.3f} s = local fwd+bwd "
+            f"{parts['fwd_bwd']:.3f} ({parts['fwd_bwd_n']} worker steps, "
+            f"{tflops:.1f} TFLOP/s = {tflops * 1e12 / BF16_OPS_PER_S:.3f} of "
+            f"the bf16 dense peak; bound {step_bound * parts['fwd_bwd_n']:.3f}"
+            f") + augment {parts['augment']:.3f} + Adam {parts['adam']:.3f} "
+            f"({parts['adam_n']} updates) + dual {parts['dual']:.3f} + "
+            f"consensus mean {parts['mean']:.3f} + z-update "
+            f"{parts['z_update']:.3f} (kernel {parts['z_kernel_n']} launches "
+            f"x {parts['z_kernel'] / parts['z_kernel_n'] * 1e3:.3f} ms) + "
+            f"rest {rest:.3f}; {tail}")
+        if sorted(kept) != sizes:
+            fail(f"[9b] the spy kept z-update inputs of sizes "
+                 f"{sorted(kept)}, expected {sizes}")
+        errs = check_kept_z(torch, ref, kept)
+        kept.clear()
+        say(f"[9b] round {k + 1}'s z-update kernel on the leaves of {sizes} "
+            f"elements against its plain version on the same inputs "
+            f"(limit {PARITY_RTOL:g} x scale on z and ||dz||^2; nnz equal; "
+            f"||dz||^2 relative to a float64 sum): {errs}")
+    launches = st.LAUNCHES["soft_threshold"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_leaves = len(tree.leaves(state.z))
+    say(f"[9b] peak device memory {peak:.2f} GB; z-update launches "
+        f"{launches} (= {n_leaves} leaves x {p['rounds']}), flash "
+        f"{fa.LAUNCHES['flash_attention']}")
+    if launches != n_leaves * p["rounds"]:
+        fail(f"[9b] {launches} z-update launches, expected "
+             f"{n_leaves * p['rounds']}")
+    if fa.LAUNCHES["flash_attention"]:
+        fail("[9b] training launched the flash kernel")
+    if not all(map(math.isfinite, losses)) or not all(
+            b < a for a, b in zip(losses, losses[1:])):
+        fail(f"[9b] the loss is not finite and falling: {losses}")
+    if peak > TRAIN_PEAK_GB:
+        fail(f"[9b] peak {peak:.2f} GB above {TRAIN_PEAK_GB} GB")
+    del state, batch, gb, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the AdamW baseline: one global batch of 8 per step
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(1),
+        device="cuda")
+    opt_state = opt.adamw_init(params)
+    sgd = trainer.make_sgd_step(cfg)
+    bf16_g, f32_g = train_flops(cfg, p["batch"], p["seq"])
+    sgd_losses = []
+    for k in range(p["sgd_steps"]):
+        batch = lm_data.batch_for(cfg, shape, k, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        params, opt_state, m = sgd(params, opt_state, batch)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        sgd_losses.append(float(m["loss"]))
+        say(f"[9b] AdamW step {k + 1}: wall {wall:.3f} s, "
+            f"{p['batch'] * p['seq'] / wall:.0f} tokens/s, "
+            f"{(bf16_g + f32_g) / wall / 1e12:.1f} TFLOP/s (step included), "
+            f"loss {sgd_losses[-1]:.5f}, grad norm {float(m['grad_norm']):.4g}")
+    peak_sgd = torch.cuda.max_memory_allocated() / 1e9
+    say(f"[9b] AdamW peak device memory {peak_sgd:.2f} GB")
+    if not all(map(math.isfinite, sgd_losses)):
+        fail(f"[9b] AdamW losses not finite: {sgd_losses}")
+    del params, opt_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_cli(torch, train, tree):
+    """(c): train.main 4 rounds straight against 2 rounds into a checkpoint
+    directory and --resume for 2 more, bit for bit, for both modes."""
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    for mode in ("admm", "sgd"):
+        argv = TRAIN_CLI + ["4", "--mode", mode]
+        t0 = time.time()
+        straight = train.main(argv)
+        t_straight = time.time() - t0
+        with tempfile.TemporaryDirectory(dir=scratch) as d:
+            ck = ["--checkpoint-dir", d]
+            t0 = time.time()
+            train.main(TRAIN_CLI + ["2", "--mode", mode] + ck)
+            resumed = train.main(argv + ["--resume"] + ck)
+            t_resumed = time.time() - t0
+        ls, lr = tree.leaves(straight), tree.leaves(resumed)
+        diff = [i for i, (a, b) in enumerate(zip(ls, lr))
+                if a.dtype != b.dtype or not torch.equal(a, b)]
+        if diff or len(ls) != len(lr):
+            fail(f"[9c] {mode}: resume differs from the straight run at "
+                 f"leaves {diff}")
+        say(f"[9c] train.main --preset 100m --mode {mode}: 4 rounds straight "
+            f"({t_straight:.1f} s) equal 2 + --resume 2 ({t_resumed:.1f} s, "
+            f"checkpoint I/O included) bit for bit over {len(ls)} leaves")
+
+
 def time_admm_kernels(torch, src: Path):
     """The margin kernel's median time per call (logistic, paper shape)
     and the z-update's device time per call in a CUDA graph (D = 10 000
@@ -2064,7 +2509,7 @@ def time_admm_kernels(torch, src: Path):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--src", type=Path,
                     help="run no phase: time the margin kernel and the "
@@ -2072,8 +2517,8 @@ def main(argv=None):
                          "and print one JSON line (see time_admm_kernels)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
-    if not phases <= set(range(1, 9)):
-        fail(f"--phases takes phases 1 to 8, got {sorted(phases)}")
+    if not phases <= set(range(1, 10)):
+        fail(f"--phases takes phases 1 to 9, got {sorted(phases)}")
 
     if not (SRC / "repro_torch" / "api.py").is_file():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
@@ -2086,16 +2531,19 @@ def main(argv=None):
         return
     sys.path.insert(0, str(SRC))
     import torch.nn.functional as F
-    from repro_torch import api, configs, problems
+    from repro_torch import api, configs, problems, tree
     from repro_torch import runtime as rt
+    from repro_torch.core import trainer
     from repro_torch.core.admm import AdmmOptions
-    from repro_torch.kernels import build, ref
+    from repro_torch.data import lm as lm_data
+    from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import logistic_vjp as lv
     from repro_torch.kernels import soft_threshold as st
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models import attention, model
+    from repro_torch.optim import optimizers as opt
     from repro_torch.runtime import PoolConfig, SchedulerConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2140,7 +2588,7 @@ def main(argv=None):
     solo, solo_launches = {}, {}
     # phase 4's sparse rows, which phase 8 reads when phase 4 ran
     paper_rows = {}
-    for phase in (4, 5, 6, 7, 8):
+    for phase in (4, 5, 6, 7, 8, 9):
         if phase not in phases:
             continue
         gc.collect()
@@ -2168,10 +2616,17 @@ def main(argv=None):
             for engine, counts in got.items():
                 for k, n in counts.items():
                     by_phase[k][f"7 {engine}"] = n
-        else:
+        elif phase == 8:
             phase_newton(torch, api, problems, rt, AdmmOptions, lv, st,
                          paper_rows)
             paper_rows.clear()
+        else:
+            phase_train_small(torch, configs, trainer, lm_data, model, tree,
+                              st, fa)
+            by_phase["soft_threshold"]["9"] = phase_train_full(
+                torch, configs, trainer, lm_data, model, opt, tree, ops, st,
+                fa, ref)
+            phase_train_cli(torch, train, tree)
         say(f"[{phase}] phase wall {time.time() - t0:.1f} s")
     if not {2, 4, 5, 6, 7} <= phases:
         say(f"phases {sorted(phases)} passed")

@@ -19,13 +19,13 @@ indices in the reference's order.
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Tuple
 
 import torch
 
 from repro_torch.configs.logreg_paper import LogRegConfig
 from repro_torch.data import threefry as tf
+from repro_torch.device import deterministic
 
 # elements of the (rows, d) uniform draw generated at once; bounds the
 # int64 temporaries of the hash to a few hundred MB each
@@ -86,19 +86,6 @@ def worker_shard_sparse(cfg: LogRegConfig, w: int, n_workers: int,
     return tuple(torch.cat(p) for p in zip(*parts))
 
 
-@contextlib.contextmanager
-def _deterministic():
-    """Deterministic algorithms for the enclosed block only: the process's
-    setting is restored on the way out."""
-    on = torch.are_deterministic_algorithms_enabled()
-    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
-    torch.use_deterministic_algorithms(True)
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(on, warn_only=warn_only)
-
-
 def add_at(out: torch.Tensor, index: torch.Tensor,
            src: torch.Tensor) -> torch.Tensor:
     """``out.view(-1)[index] += src`` over flat indices, duplicates summed
@@ -108,7 +95,7 @@ def add_at(out: torch.Tensor, index: torch.Tensor,
     with ``accumulate=True`` under deterministic algorithms; float atomics,
     as ``index_add_`` and ``scatter_add_`` use, sum in arrival order).
     Returns ``out``."""
-    with _deterministic():
+    with deterministic():
         out.view(-1).index_put_((index,), src, accumulate=True)
     return out
 

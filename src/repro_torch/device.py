@@ -6,6 +6,8 @@ CPU in silence.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -16,3 +18,16 @@ def resolve_device(device="cuda") -> torch.device:
             f"device={str(device)!r} needs a CUDA device and none is "
             f"available; pass device='cpu' to run the plain path")
     return dev
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic algorithms for the enclosed block only: the process's
+    setting is restored on the way out."""
+    on = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(on, warn_only=warn_only)

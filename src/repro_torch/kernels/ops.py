@@ -10,6 +10,11 @@ The margin wrappers take a leading worker axis: A (W, N, D), b and mask (W, N),
 x (W, D) give (loss (W,), grad (W, D)); the unbatched forms drop W.  Shards
 are staged unpadded; the kernels mask ragged edges themselves, so no call
 copies A.
+
+The attention kernels have no backward and autograd does not see a ctypes
+launch: on the card, ``flash_attention`` and ``decode_attention`` raise when
+grad mode is on and an input requires grad, rather than return a result
+whose inputs would silently get no gradient.
 """
 from __future__ import annotations
 
@@ -89,10 +94,21 @@ def fused_z_update(omega_bar, z_old, thr: float):
         omega_bar, z_old, torch.tensor(thr, dtype=torch.float32))
 
 
+def refuse_autograd(name: str, *tensors) -> None:
+    """Raise if autograd would have to differentiate a kernel that has no
+    backward: grad mode on and an input that requires grad."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and an input requires "
+            f"grad; differentiate through attention.block_attention (what "
+            f"model.loss_fn runs) or call it under torch.no_grad()")
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window=None):
     """q (B,S,H,hd), k/v (B,Skv,KV,hd) -> (B,S,H,hd), in the model's layout
     (no transpose on either path)."""
     if q.is_cuda:
+        refuse_autograd("flash_attention", q, k, v)
         return fa_k.flash_attention_cuda(q, k, v, causal=causal,
                                          window=window)
     return attn_mod.block_attention(q, k, v, causal=causal, window=window)
@@ -102,6 +118,7 @@ def decode_attention(q, k_cache, v_cache, positions):
     """q (B,1,H,hd), caches (B,Smax,KV,hd), positions (B,) -> (B,1,H,hd).
     On the card the cache is read in place; positions go as int32."""
     if q.is_cuda:
+        refuse_autograd("decode_attention", q, k_cache, v_cache)
         return dec_k.decode_attention_cuda(
             q, k_cache, v_cache, positions.to(torch.int32).contiguous())
     return attn_mod.decode_attention(q, k_cache, v_cache, positions)

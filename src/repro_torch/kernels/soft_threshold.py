@@ -3,7 +3,8 @@
 The CUDA source, ``csrc/soft_threshold.cu``, replaces the TPU kernel
 ``repro/kernels/soft_threshold.py:_kernel``: z = S(ω̄; thr),
 ||z - z_old||² and nnz(z) in one sweep over ``plan(D, n_sms)`` blocks,
-combined in the same launch with a fixed-order sum and an exact count.
+combined in the same launch with a fixed-order float64 sum (rounded once
+to float32) and an exact count.
 The wrapper checks its operands, allocates outputs and scratch with
 ``torch.empty``, launches on PyTorch's current stream, raises if the
 launch failed, and counts the launch.
@@ -83,13 +84,14 @@ def soft_threshold_cuda(omega, z_old, thr: float):
     z = torch.empty((D,), dtype=torch.float32, device=dev)
     ssq = torch.empty((), dtype=torch.float32, device=dev)
     nnz = torch.empty((), dtype=torch.int64, device=dev)
-    part = torch.empty((2 * blocks,), dtype=torch.int32, device=dev)
+    # float64 ssq partials, then int32 nnz partials
+    part = torch.empty((3 * blocks,), dtype=torch.int32, device=dev)
     arrivals = _arrivals(dev)
     with torch.cuda.device(dev):
         rc = _lib().soft_threshold_f32(
             omega.data_ptr(), z_old.data_ptr(), float(thr), z.data_ptr(),
             ssq.data_ptr(), nnz.data_ptr(), part.data_ptr(),
-            part[blocks:].data_ptr(), arrivals.data_ptr(), D, blocks,
+            part[2 * blocks:].data_ptr(), arrivals.data_ptr(), D, blocks,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"soft_threshold_f32 launch failed with CUDA "

@@ -5,6 +5,12 @@ explicit ``torch.Generator`` on the device they are given.  The rounding
 points are the reference's: norms, RoPE and the logits compute in float32
 and cast back to the activations' dtype; dense layers run in the
 parameters' dtype (float32 accumulation inside the matmul).
+
+Training adds the reference's ``grad_downcast`` and ``cross_entropy``.  The
+embedding's backward sums the rows of repeated tokens in a fixed order
+(a stable sort of the tokens, under deterministic algorithms), so a
+training step repeats bit for bit on the card, where ``table[tokens]``'s
+own backward adds floats atomically.
 """
 from __future__ import annotations
 
@@ -12,6 +18,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.device import deterministic
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -123,6 +131,28 @@ def mlp(p, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Gradient dtype barrier
+# ---------------------------------------------------------------------------
+
+class _GradDowncast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct.to(ctx.dtype)
+
+
+def grad_downcast(x: torch.Tensor) -> torch.Tensor:
+    """Identity that casts the COTANGENT to x's dtype (the reference's
+    ``custom_vjp`` barrier where the residual stream meets the float32
+    head)."""
+    return _GradDowncast.apply(x)
+
+
+# ---------------------------------------------------------------------------
 # Embedding / head
 # ---------------------------------------------------------------------------
 
@@ -130,8 +160,28 @@ def init_embedding(vocab: int, d_model: int, dtype, *, generator, device):
     return _normal((vocab, d_model), 0.02, dtype, generator, device)
 
 
+class _Embed(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.table_shape = table.shape
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, ct):
+        tokens, = ctx.saved_tensors
+        V, d = ctx.table_shape
+        grad = torch.zeros((V, d), dtype=ct.dtype, device=ct.device)
+        with deterministic():
+            grad.index_put_((tokens.reshape(-1).long(),), ct.reshape(-1, d),
+                            accumulate=True)
+        return grad, None
+
+
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+    """``table[tokens]``; repeated tokens' cotangents are summed in a fixed
+    order."""
+    return _Embed.apply(table, tokens)
 
 
 def lm_logits(head_w: torch.Tensor, x: torch.Tensor,
@@ -147,3 +197,17 @@ def lm_logits(head_w: torch.Tensor, x: torch.Tensor,
         valid = torch.arange(V, device=logits.device) < n_valid
         logits = torch.where(valid, logits, torch.full_like(logits, -1e30))
     return logits
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy, float32. logits (..., V), labels (...).
+
+    The reference's form: the max is detached (``stop_gradient``), and the
+    label pick is an iota compare and a masked sum."""
+    logits = logits.float()
+    m = torch.amax(logits, dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
+    V = logits.shape[-1]
+    hit = torch.arange(V, device=logits.device) == labels[..., None]
+    ll = torch.sum(torch.where(hit, logits, 0.0), dim=-1)
+    return torch.mean(lse - ll)

@@ -1,33 +1,42 @@
-"""Decoder stack for serving (a port of ``repro/models/model.py``).
+"""Decoder stack for serving and training (a port of
+``repro/models/model.py``).
 
 The dense family only: ``init_params``, ``init_cache``, ``forward``,
-``prefill`` and ``decode_step`` keep the reference's names, arguments and
-parameter tree — nested dicts with every layer's leaves stacked along a
-leading axis (``params["blocks"]["attn"]["wq"]["w"]`` is (L, d, H*hd), in
-``x @ w`` orientation).  A Python loop over layers takes the place of
-``lax.scan``; layer i's parameters and cache are views, never copies.
+``loss_fn``, ``prefill`` and ``decode_step`` keep the reference's names,
+arguments and parameter tree — nested dicts with every layer's leaves
+stacked along a leading axis (``params["blocks"]["attn"]["wq"]["w"]`` is
+(L, d, H*hd), in ``x @ w`` orientation).  A Python loop over layers takes
+the place of ``lax.scan``; layer i's parameters and cache are views, never
+copies.
 
 Differences from the reference, none of which changes the math:
-  * attention goes through ``kernels/ops.py``: the hand-written flash and
-    decode kernels on the card, their plain versions
-    (``attention.block_attention`` / ``decode_attention``) on the CPU;
+  * attention in ``forward``, ``prefill`` and ``decode_step`` goes through
+    ``kernels/ops.py``: the hand-written flash and decode kernels on the
+    card, their plain versions (``attention.block_attention`` /
+    ``decode_attention``) on the CPU.  The kernels have no backward, so
+    ``loss_fn`` runs ``attention.block_attention`` under autograd on either
+    device, as the reference trains through its jnp sweep;
+  * ``remat`` checkpoints each layer (``torch.utils.checkpoint``,
+    non-reentrant) where the reference wraps the scan body in
+    ``jax.checkpoint``; it takes effect only when grad mode is on;
   * caches are updated in place: ``prefill`` and ``decode_step`` write
     into the ``cache`` they are given and return that same dict;
   * the RoPE tables are computed once per call and shared by the layers;
   * ``attn_head_pad`` (a TPU mesh padding) is ignored, and the sharding
-    hints (``constrain``) have no counterpart;
-  * ``forward`` has no ``remat``: training is not ported.
+    hints (``constrain``) have no counterpart.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import attention, layers
+from repro_torch.tree import flatten, tree_map
 
 Params = Dict[str, Any]
 
@@ -40,12 +49,6 @@ def _require_served(cfg: ModelConfig, what: str) -> None:
             f"{what}: the {cfg.family!r} family ({cfg.name}) is not ported; "
             f"the port serves {SERVED_FAMILIES} only (ROADMAP.md, Queue 1: "
             f"'The other LM families')")
-
-
-def _tree_map(fn, *trees):
-    if isinstance(trees[0], dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
-    return fn(*trees)
 
 
 # ===========================================================================
@@ -113,17 +116,22 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
     if not cfg.tie_embeddings:
         params["head"] = layers.init_embedding(cfg.padded_vocab, cfg.d_model,
                                                dtype, **kw)
-    blocks = _tree_map(lambda s: torch.empty(s, dtype=dtype, device=dev),
-                       param_shapes(cfg)["blocks"])
+    blocks = None
     for i in range(cfg.n_layers):
-        _tree_map(lambda dst, src: dst[i].copy_(src), blocks,
-                  _init_block_dense(cfg, dtype, **kw))
+        layer = _init_block_dense(cfg, dtype, **kw)
+        if blocks is None:
+            blocks = tree_map(lambda t: t.new_empty((cfg.n_layers,) + t.shape),
+                              layer)
+        tree_map(lambda dst, src: dst[i].copy_(src), blocks, layer)
     params["blocks"] = blocks
     return params
 
 
-def _layer(blocks: Params, i: int) -> Params:
-    return _tree_map(lambda t: t[i], blocks)
+def _layers(blocks: Params) -> List[Params]:
+    """Every layer's parameters (views), by ``unbind``: under autograd the
+    stacked leaf's gradient is then one stack of the layers' gradients."""
+    leaves, build = flatten(blocks)
+    return [build(ls) for ls in zip(*(torch.unbind(t) for t in leaves))]
 
 
 # ===========================================================================
@@ -132,9 +140,9 @@ def _layer(blocks: Params, i: int) -> Params:
 
 
 def _attn_seq(p, cfg: ModelConfig, x, positions, *, window, rope,
-              kv_out: bool = False):
-    """Pre-norm GQA attention over a full sequence. Optionally return
-    (k, v)."""
+              kv_out: bool = False, attend=ops.flash_attention):
+    """Pre-norm GQA attention over a full sequence, through ``attend``.
+    Optionally return (k, v)."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -143,7 +151,7 @@ def _attn_seq(p, cfg: ModelConfig, x, positions, *, window, rope,
     v = layers.dense(p["attn"]["wv"], h).reshape(B, S, KV, hd)
     q = layers.apply_rope(q, positions, cfg.rope_theta, tables=rope)
     k = layers.apply_rope(k, positions, cfg.rope_theta, tables=rope)
-    o = ops.flash_attention(q, k, v, causal=True, window=window)
+    o = attend(q, k, v, causal=True, window=window)
     x = x + layers.dense(p["attn"]["wo"], o.reshape(B, S, H * hd))
     return (x, (k, v)) if kv_out else x
 
@@ -155,9 +163,9 @@ def _ff_seq(p, cfg: ModelConfig, x):
 
 
 def _block_seq(p, cfg: ModelConfig, x, positions, *, rope,
-               kv_out: bool = False):
+               kv_out: bool = False, attend=ops.flash_attention):
     out = _attn_seq(p, cfg, x, positions, window=cfg.sliding_window,
-                    rope=rope, kv_out=kv_out)
+                    rope=rope, kv_out=kv_out, attend=attend)
     if kv_out:
         x, kv = out
         return _ff_seq(p, cfg, x), kv
@@ -178,17 +186,42 @@ def _embed_input(params, cfg: ModelConfig, batch) -> torch.Tensor:
     return layers.embed(params["embed"], batch["tokens"])
 
 
-def forward(params, cfg: ModelConfig, batch):
-    """Full-sequence forward -> (logits float32 (B, S, V), aux_loss 0)."""
+def _forward(params, cfg: ModelConfig, batch, *, remat: bool, attend):
     _require_served(cfg, "forward")
     x = _embed_input(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     rope = layers.rope_tables(positions, cfg.hd, cfg.rope_theta)
-    for i in range(cfg.n_layers):
-        x = _block_seq(_layer(params["blocks"], i), cfg, x, positions,
-                       rope=rope)
+
+    def block(p, x):
+        return _block_seq(p, cfg, x, positions, rope=rope, attend=attend)
+    remat = remat and torch.is_grad_enabled()
+    for p in _layers(params["blocks"]):
+        x = checkpoint(block, p, x, use_reentrant=False) if remat \
+            else block(p, x)
+    x = layers.grad_downcast(x)       # cotangents in x's dtype upstream
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _lm_logits(params, cfg, x), torch.zeros((), device=x.device)
+
+
+def forward(params, cfg: ModelConfig, batch, *, remat: bool = True):
+    """Full-sequence forward -> (logits float32 (B, S, V), aux_loss 0),
+    attention through ``ops.flash_attention`` (which refuses autograd
+    inputs on the card: differentiate ``loss_fn``)."""
+    return _forward(params, cfg, batch, remat=remat,
+                    attend=ops.flash_attention)
+
+
+AUX_WEIGHT = 0.01
+
+
+def loss_fn(params, cfg: ModelConfig, batch, *, remat: bool = True):
+    """(ce + AUX_WEIGHT * aux, {"ce", "aux"}) of ``batch["labels"]``; the
+    forward's attention is ``attention.block_attention`` on every device,
+    so the loss differentiates."""
+    logits, aux = _forward(params, cfg, batch, remat=remat,
+                           attend=attention.block_attention)
+    ce = layers.cross_entropy(logits, batch["labels"])
+    return ce + AUX_WEIGHT * aux, {"ce": ce, "aux": aux}
 
 
 # ===========================================================================
@@ -244,9 +277,8 @@ def prefill(params, cfg: ModelConfig, batch, cache, *,
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     rope = layers.rope_tables(positions, cfg.hd, cfg.rope_theta)
     Smax = cache_max_len(cfg, cache)
-    for i in range(cfg.n_layers):
-        x, (k, v) = _block_seq(_layer(params["blocks"], i), cfg, x,
-                               positions, rope=rope, kv_out=True)
+    for i, p in enumerate(_layers(params["blocks"])):
+        x, (k, v) = _block_seq(p, cfg, x, positions, rope=rope, kv_out=True)
         _write_prefill(cache["k"][i], k, Smax)
         _write_prefill(cache["v"][i], v, Smax)
     if last_only:
@@ -284,8 +316,7 @@ def decode_step(params, cfg: ModelConfig, batch,
     positions = batch["positions"]
     rope = layers.rope_tables(positions[:, None], cfg.hd, cfg.rope_theta)
     ring = cfg.sliding_window is not None
-    for i in range(cfg.n_layers):
-        p = _layer(params["blocks"], i)
+    for i, p in enumerate(_layers(params["blocks"])):
         x = _attn_decode(p, cfg, x, positions, cache["k"][i], cache["v"][i],
                          ring=ring, rope=rope)
         x = _ff_seq(p, cfg, x)

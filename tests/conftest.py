@@ -14,3 +14,8 @@ def rng():
     # function-scoped: every test sees the same deterministic stream
     # regardless of which other tests ran (order-independence)
     return np.random.RandomState(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; the test skips without one")

@@ -285,6 +285,10 @@ SLICE_MODULES = [
     "models/layers.py", "models/attention.py", "models/model.py",
     "models/convert.py", "launch/serve.py", "kernels/flash_attention.py",
     "kernels/decode_attention.py", "kernels/ops.py", "kernels/ref.py",
+    # the training slice
+    "tree.py", "device.py", "optim/optimizers.py", "optim/schedules.py",
+    "data/lm.py", "core/trainer.py", "checkpoint/__init__.py",
+    "checkpoint/store.py", "launch/train.py",
 ]
 
 
