@@ -1,4 +1,6 @@
-"""Causal GQA flash attention (prefill) on the card.
+"""GQA flash attention (prefill) on the card: causal, windowed, or with
+``causal=False`` (the VLM's cross-attention over its image tokens, Skv
+keys for S queries), each instantiation's launches counted apart.
 
 The CUDA source, ``csrc/flash_attention.cu``, replaces the TPU kernel
 ``repro/kernels/flash_attention.py:_kernel``.  It takes the model's layouts
@@ -24,13 +26,15 @@ import torch
 
 from repro_torch.kernels import build
 
-LAUNCHES = {"flash_attention": 0}
+# causal (or windowed) launches, and the causal=False instantiation's
+LAUNCHES = {"flash_attention": 0, "flash_attention_noncausal": 0}
 MAX_HEAD_DIM = 128
 _TYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launches() -> None:
-    LAUNCHES["flash_attention"] = 0
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def body(dtype, hd: int) -> str:
@@ -102,5 +106,6 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
         raise RuntimeError(f"flash_attention_fwd launch failed with error "
                            f"{rc} (CUDA's; 10000 + the driver's when a "
                            f"tensor map could not be encoded)")
-    LAUNCHES["flash_attention"] += 1
+    LAUNCHES["flash_attention" if causal else
+             "flash_attention_noncausal"] += 1
     return o

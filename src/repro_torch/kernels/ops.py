@@ -114,6 +114,21 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
     return attn_mod.block_attention(q, k, v, causal=causal, window=window)
 
 
+def cross_attention(q, k, v):
+    """q (B, Sq, H, hd), k/v (B, T, KV, hd) -> (B, Sq, H, hd), every query
+    over all T keys.  On the card a prefill (Sq > 1) runs the flash
+    kernel with ``causal=False``, and one query runs the decode kernel
+    with every slot live (position T - 1)."""
+    if q.is_cuda:
+        refuse_autograd("cross_attention", q, k, v)
+        if q.shape[1] == 1:
+            last = torch.full((q.shape[0],), k.shape[1] - 1,
+                              dtype=torch.int32, device=q.device)
+            return dec_k.decode_attention_cuda(q, k, v, last)
+        return fa_k.flash_attention_cuda(q, k, v, causal=False)
+    return attn_mod.cross_attention(q, k, v)
+
+
 def decode_attention(q, k_cache, v_cache, positions):
     """q (B,1,H,hd), caches (B,Smax,KV,hd), positions (B,) -> (B,1,H,hd).
     On the card the cache is read in place; positions go as int32."""

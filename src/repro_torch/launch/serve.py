@@ -1,9 +1,12 @@
 """Serving driver: batched prefill + greedy decode (a port of
 ``repro/launch/serve.py``).
 
-Serves a model of the dense family with batched greedy decoding on the
-card (``--device cuda``, the default) or on the CPU.  Prompts are synthetic
-tokens from an explicit ``torch.Generator``; greedy ``argmax`` stays on the
+Serves a model of any family with batched greedy decoding on the card
+(``--device cuda``, the default) or on the CPU.  Prompts are synthetic,
+drawn from an explicit ``torch.Generator``: tokens, or for the audio
+family frame embeddings (each decode step embeds the sampled code
+through ``params["embed"]``), and for the VLM image embeddings, carried
+through prefill into the image K/V cache.  Greedy ``argmax`` stays on the
 device and the tokens come to the host once, at the end.
 
   python -m repro_torch.launch.serve --arch granite_8b --preset full \\
@@ -18,16 +21,50 @@ import torch
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.device import resolve_device
+from repro_torch.models import layers
 from repro_torch.models import model as model_mod
 
 
 def synthetic_prompt(cfg, batch: int, prompt_len: int, seed: int,
-                     device) -> torch.Tensor:
-    """(batch, prompt_len) int64 tokens drawn uniformly from the vocabulary
-    by a generator on ``device`` seeded with ``seed + 1``."""
+                     device) -> dict:
+    """The prompt batch, drawn by a generator on ``device`` seeded with
+    ``seed + 1``: (batch, prompt_len) int64 tokens uniform over the
+    vocabulary, or for the audio family (batch, prompt_len, d_model) frame
+    embeddings; for the VLM also (batch, n_img_tokens, d_model) image
+    embeddings.  Embeddings are normal times 0.02 in ``cfg.dtype``."""
     gen = torch.Generator(device=device).manual_seed(seed + 1)
-    return torch.randint(0, cfg.vocab_size, (batch, prompt_len),
-                         generator=gen, device=device)
+
+    def embeds(n):
+        return layers.normal((batch, n, cfg.d_model), 0.02,
+                             layers.dtype_of(cfg), gen, device)
+    out = {}
+    if cfg.family == "audio":
+        out["embeds"] = embeds(prompt_len)
+    else:
+        out["tokens"] = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                                      generator=gen, device=device)
+    if cfg.family == "vlm":
+        out["img_embeds"] = embeds(cfg.n_img_tokens)
+    return out
+
+
+def step_batch(params, cfg, prompt: dict, tok: torch.Tensor,
+               position) -> dict:
+    """The decode step's batch for the sampled tokens ``tok`` (B,) at
+    ``position`` (an int or (B,) int32): their embedding rows for the
+    audio family, else the tokens; the VLM's image embeddings ride along,
+    as in the reference (decode reads the cached image K/V)."""
+    B = tok.shape[0]
+    out = {"positions": torch.as_tensor(position, dtype=torch.int32,
+                                        device=tok.device).expand(B)
+           .contiguous()}
+    if cfg.family == "audio":
+        out["embeds"] = params["embed"][tok][:, None, :]
+    else:
+        out["tokens"] = tok[:, None]
+    if cfg.family == "vlm":
+        out["img_embeds"] = prompt["img_embeds"]
+    return out
 
 
 def _sync(device):
@@ -35,20 +72,21 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def generate(params, cfg, tokens: torch.Tensor, gen_len: int,
-             stats) -> torch.Tensor:
-    """Prefill ``tokens`` (B, P), then ``gen_len - 1`` greedy decode steps.
-    Returns the (B, gen_len) generated tokens on the device.
+def generate(params, cfg, prompt: dict, gen_len: int, stats) -> torch.Tensor:
+    """Prefill ``prompt`` (``synthetic_prompt``'s dict, P positions), then
+    ``gen_len - 1`` greedy decode steps.  Returns the (B, gen_len)
+    generated tokens on the device.
 
     ``stats``, a dict, receives the prefill and decode seconds and, by
     reference, the logits of the prefill's last position, of the first
     decode step (position P) and of the last step, each (B, V)."""
-    B, P = tokens.shape
-    dev = tokens.device
+    first = prompt["embeds"] if cfg.family == "audio" else prompt["tokens"]
+    B, P = first.shape[:2]
+    dev = first.device
     cache = model_mod.init_cache(cfg, B, P + gen_len, device=dev)
     _sync(dev)
     t0 = time.time()
-    logits, cache = model_mod.prefill(params, cfg, {"tokens": tokens}, cache,
+    logits, cache = model_mod.prefill(params, cfg, prompt, cache,
                                       last_only=True)
     _sync(dev)
     t_prefill = time.time() - t0
@@ -57,9 +95,7 @@ def generate(params, cfg, tokens: torch.Tensor, gen_len: int,
     toks = [next_tok]
     t0 = time.time()
     for i in range(gen_len - 1):
-        step = {"tokens": next_tok[:, None],
-                "positions": torch.full((B,), P + i, dtype=torch.int32,
-                                        device=dev)}
+        step = step_batch(params, cfg, prompt, next_tok, P + i)
         logits, cache = model_mod.decode_step(params, cfg, step, cache)
         next_tok = torch.argmax(logits[:, -1, :], dim=-1)
         toks.append(next_tok)
@@ -72,11 +108,13 @@ def generate(params, cfg, tokens: torch.Tensor, gen_len: int,
     return torch.stack(toks, dim=1)
 
 
-def main(argv=None, params=None, stats=None):
+def main(argv=None, params=None, stats=None, cfg=None):
     """Serve one synthetic batch and return its generated tokens (B, gen)
     on the host.  ``params`` (the port's tree, e.g. carried across from
-    the reference by ``models/convert.py``) replaces the random ones; a
-    ``stats`` dict receives the prompt and what ``generate`` records."""
+    the reference by ``models/convert.py``) replaces the random ones;
+    ``cfg`` replaces the config that ``--arch`` and ``--preset`` name (a
+    depth cut, say); a ``stats`` dict receives the prompt and what
+    ``generate`` records."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="stablelm_3b")
     ap.add_argument("--preset", choices=("tiny", "full"), default="tiny")
@@ -86,8 +124,9 @@ def main(argv=None, params=None, stats=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    cfg = get_config(args.arch) if args.preset == "full" else \
-        reduced(get_config(args.arch))
+    if cfg is None:
+        cfg = get_config(args.arch) if args.preset == "full" else \
+            reduced(get_config(args.arch))
     dev = resolve_device(args.device)
     B, P, G = args.batch, args.prompt_len, args.gen_len
     print(f"[serve] arch={args.arch} preset={args.preset} batch={B} "
@@ -96,10 +135,10 @@ def main(argv=None, params=None, stats=None):
         if params is None:
             gen = torch.Generator(device=dev).manual_seed(args.seed)
             params = model_mod.init_params(cfg, generator=gen, device=dev)
-        tokens = synthetic_prompt(cfg, B, P, args.seed, dev)
+        prompt = synthetic_prompt(cfg, B, P, args.seed, dev)
         times = {} if stats is None else stats
-        times["prompt"] = tokens
-        out = generate(params, cfg, tokens, G, times).cpu()
+        times["prompt"] = prompt
+        out = generate(params, cfg, prompt, G, times).cpu()
     t_prefill, t_decode = times["prefill_s"], times["decode_s"]
     print(f"[serve] prefill: {B*P} tokens in {t_prefill:.3f}s "
           f"({B*P/t_prefill:.0f} tok/s)")

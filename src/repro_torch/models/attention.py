@@ -4,9 +4,12 @@
 versions of the two hand-written kernels (``kernels/flash_attention.py``,
 ``kernels/decode_attention.py``): what a CPU tensor runs through
 ``kernels/ops.py``, and what ``chip_smoke.py`` holds each kernel against on
-the card.  They keep the reference's float32 scores and softmax and its
-grouped GQA layout: query head ``h = kv * G + g`` attends with KV head
-``kv``, and K/V are never repeated across the G query heads.
+the card.  ``cross_attention`` (the VLM's, no mask) is the plain version
+of flash's ``causal=False`` instantiation and of the decode kernel over
+all of an image cache's slots.  They keep the reference's float32 scores
+and softmax and its grouped GQA layout: query head ``h = kv * G + g``
+attends with KV head ``kv``, and K/V are never repeated across the G
+query heads.
 
 Unlike the reference, the port updates KV caches in place
 (``update_cache``), so a decode step does not copy the cache.
@@ -110,6 +113,31 @@ def naive_attention(q, k, v, *, causal: bool = True,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bqkgc,bckd->bqkgd", p, v.float())
     return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (no mask, short kv): chunked over q only
+# ---------------------------------------------------------------------------
+
+def cross_attention(q, k, v, *, chunk_q: int = 512) -> torch.Tensor:
+    """q (B, Sq, H, hd), k/v (B, T, KV, hd) -> (B, Sq, H, hd): every query
+    attends to all T keys.  The reference's plain version: float32 scores
+    and softmax over query chunks of ``chunk_q`` (one chunk when Sq is
+    not a multiple)."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    cq = min(chunk_q, Sq)
+    if Sq % cq:
+        cq = Sq
+    kf, vf = k.float(), v.float()
+    outs = []
+    for q0 in range(0, Sq, cq):
+        s = torch.einsum("bqkgd,bckd->bqkgc",
+                         _grouped(q[:, q0:q0 + cq], KV).float(),
+                         kf) * hd ** -0.5
+        outs.append(torch.einsum("bqkgc,bckd->bqkgd",
+                                 torch.softmax(s, dim=-1), vf))
+    return torch.cat(outs, dim=1).reshape(B, Sq, H, hd).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,7 @@ def dtype_of(cfg) -> torch.dtype:
     return DTYPES[cfg.dtype]
 
 
-def _normal(shape, std: float, dtype, generator, device):
+def normal(shape, std: float, dtype, generator, device):
     """Normal draws in float32, scaled, cast to ``dtype`` (the reference's
     ``(normal(key, shape, f32) * std).astype(dtype)``)."""
     out = torch.randn(shape, generator=generator, device=device,
@@ -58,7 +58,7 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
 def init_dense(d_in: int, d_out: int, dtype, *, generator, device,
                bias: bool = False):
     """{"w": (d_in, d_out)} in ``x @ w`` orientation, plus "b" if asked."""
-    p = {"w": _normal((d_in, d_out), d_in ** -0.5, dtype, generator, device)}
+    p = {"w": normal((d_in, d_out), d_in ** -0.5, dtype, generator, device)}
     if bias:
         p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
     return p
@@ -157,7 +157,7 @@ def grad_downcast(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def init_embedding(vocab: int, d_model: int, dtype, *, generator, device):
-    return _normal((vocab, d_model), 0.02, dtype, generator, device)
+    return normal((vocab, d_model), 0.02, dtype, generator, device)
 
 
 class _Embed(torch.autograd.Function):

@@ -157,7 +157,10 @@ def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
     kv = torch.as_tensor(_rand(rng, (1, 8, 2, 16)))
     t_ops.flash_attention(q, kv, kv)
     t_ops.decode_attention(q[:, :1], kv, kv, torch.tensor([5]))
-    assert t_fa.LAUNCHES == {"flash_attention": 0}
+    t_ops.cross_attention(q, kv, kv)
+    t_ops.cross_attention(q[:, :1], kv, kv)
+    assert t_fa.LAUNCHES == {"flash_attention": 0,
+                             "flash_attention_noncausal": 0}
     assert t_dec.LAUNCHES == {"decode_attention": 0}
     assert t_dec._ARRIVALS == {}        # no arrival counters allocated
     # the kernels' wrappers take CUDA tensors only, and never fall back

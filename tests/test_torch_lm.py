@@ -6,9 +6,9 @@
 greedy ``decode_step``s, with full attention and with a 16-token sliding
 window (a ring cache written at prefill), then ``serve.main`` end to end.
 Tolerances rtol 1e-4, atol 1e-5: float32 sums in other orders across two
-layers.  Also the config registry, the carrying of every leaf, the
-families the slice does not serve, and the no-JAX rule for the new
-modules.
+layers.  Also the config registry, the carrying of every leaf and the
+no-JAX rule for the new modules (the other families are held in
+``test_torch_families.py``).
 """
 import dataclasses
 import os
@@ -213,7 +213,7 @@ def test_serve_main_returns_the_reference_greedy_tokens():
     cache = j_model.init_cache(jcfg, B, P + gen)
     logits, cache = jax.jit(lambda p, b, c: j_model.prefill(
         p, jcfg, b, c, last_only=True))(
-            jp, {"tokens": jnp.asarray(prompt.numpy())}, cache)
+            jp, {"tokens": jnp.asarray(prompt["tokens"].numpy())}, cache)
     decode = jax.jit(lambda p, b, c: j_model.decode_step(p, jcfg, b, c))
     toks = [jnp.argmax(logits[:, -1], axis=-1)]
     for i in range(gen - 1):
@@ -236,23 +236,6 @@ def test_serve_defaults_to_the_card():
     _, tcfg = _cfgs()
     with pytest.raises(RuntimeError, match="CUDA"):
         t_model.init_cache(tcfg, 1, 4)
-
-
-NOT_SERVED = [a for a in t_configs.ARCH_IDS
-              if t_configs.get_config(a).family != "dense"]
-
-
-@pytest.mark.parametrize("arch", NOT_SERVED)
-def test_families_not_ported_raise(arch):
-    cfg = t_configs.reduced(t_configs.get_config(arch))
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_model.init_params(cfg, generator=gen, device="cpu")
-    for fn in (lambda: t_model.init_cache(cfg, 1, 4, device="cpu"),
-               lambda: t_model.prefill({}, cfg, {}, {}),
-               lambda: t_model.decode_step({}, cfg, {}, {})):
-        with pytest.raises(NotImplementedError, match=cfg.family):
-            fn()
 
 
 def test_init_params_draws_the_reference_tree():
@@ -283,6 +266,11 @@ def test_init_params_draws_the_reference_tree():
 SLICE_MODULES = [
     "configs/__init__.py", "configs/base.py", "configs/granite_8b.py",
     "models/layers.py", "models/attention.py", "models/model.py",
+    # the other families
+    "models/moe.py", "models/ssm.py", "configs/granite_moe_3b_a800m.py",
+    "configs/mixtral_8x7b.py", "configs/musicgen_large.py",
+    "configs/llama3_2_vision_90b.py", "configs/zamba2_1_2b.py",
+    "configs/rwkv6_1_6b.py",
     "models/convert.py", "launch/serve.py", "kernels/flash_attention.py",
     "kernels/decode_attention.py", "kernels/ops.py", "kernels/ref.py",
     # the training slice
