@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases 1,2,7  # the kernels and the cluster
     python3 chip_smoke.py --phases 1,8    # the second-order path at size
     python3 chip_smoke.py --phases 1,9    # LM training
+    python3 chip_smoke.py --phases 1,11   # the sharded steps and dry-run
     python3 chip_smoke.py --src OTHER/src # time another checkout's ADMM
                                           # kernels, nothing else
 
@@ -124,11 +125,28 @@ caught):
      and, as the witness, in float32 (the MoE models at a dropless
      capacity factor), each with a control one position off that must
      miss the limit;
+  11. mesh, sharding and the dry-run (``launch/{mesh,steps,op_analysis,
+     dryrun}.py``): (a) granite_8b at full width and depth in bf16 through
+     ``build_step(..., "prefill")`` (B=8, prompt 2048) and 8 ``"decode"``
+     steps on ``make_host_mesh()`` (1x1 on the card), logits and greedy
+     tokens bit for bit equal to ``model.prefill`` / ``decode_step`` on the
+     same weights, with a control one position off that must differ, and
+     the attention launches (36 flash, 36 x 8 decode); (b) one ADMM round
+     through ``build_step(..., "admm")`` at phase 9's cut (4 layers, batch
+     8 x 1024, K=4, l1; W=1) bit for bit equal to ``make_round_step`` at
+     W=1 (metrics and every leaf), one z-update launch per leaf; (c) for
+     (a)'s prefill, one decode step and (b)'s round: the op counter's FLOPs
+     and bytes, the CUDA-event median, the roofline terms on the H100's
+     datasheet, the achieved share and the useful-FLOPs ratio, prefill's
+     counted FLOPs within [1.0, 1.1] of the analytic count; (d) the
+     dry-run of granite_8b x {train_4k sgd, train_4k admm, decode_32k} on
+     the (16, 16) mesh, each cell a process of its own on the CPU, all
+     started together after (c), each "ok" and within 80e9 B a rank;
 then the kernels line {"kernels": [...]} (when phases 2, 4, 5, 6, 7 and
 10 ran; each entry names the kernel's design in "body" and its launches
-on each main path in "launches_by_phase", phase 9's z-update launches
-among them when it ran; the flash kernel's causal=False instantiation is
-an entry of its own) and the last line
+on each main path in "launches_by_phase", phase 9's and 11's among them
+when they ran; the flash kernel's causal=False instantiation is an entry
+of its own) and the last line
 {"ok": true, "device": {...}}.
 
 It imports torch and the port only.  Without a CUDA device, or outside a
@@ -2527,8 +2545,8 @@ def check_kept_z(torch, ref, kept):
     errs = {}
     for size, ((omega, z_old, thr), (z_k, s_k, n_k)) in sorted(kept.items()):
         z_p, s_p, n_p = ref.soft_threshold_ref(
-            omega, z_old, torch.tensor(thr, dtype=torch.float32,
-                                       device="cuda"))
+            omega, z_old, torch.as_tensor(thr, dtype=torch.float32,
+                                          device="cuda"))
         if int(n_k) != int(n_p):
             fail(f"[9b] z-update on a {size}-element leaf: nnz {int(n_k)} "
                  f"!= plain {int(n_p)}")
@@ -2977,6 +2995,334 @@ def phase_families(torch, configs, model, serve, moe, ops, fa, dec,
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the sharded steps (launch/steps.py) on the card's 1x1 mesh, the
+# op analysis against the card's roofline, and the dry-run at production
+# size on the CPU
+# ---------------------------------------------------------------------------
+
+# (a) decode steps through the sharded step after its prefill
+SHARD_DECODE = 8
+# (c) prefill's counted FLOPs against the analytic count of its matmuls
+# (the body's, the head's at the last position) and the flash kernel's
+FLOP_BAND = (1.0, 1.1)
+# (d) granite_8b's cells on the (16, 16) mesh, each in a process of its own
+DRYRUN_CELLS = (("train_4k", "sgd"), ("train_4k", "admm"),
+                ("decode_32k", "decode"))
+DRYRUN_BUDGET_S = 120.0
+DRYRUN_TIMEOUT_S = 400
+
+
+def start_dryrun():
+    """(d)'s cells, each ``python -m repro_torch.launch.dryrun`` with no card
+    visible (the fake process group never meets this process's), all
+    started together on the CPU."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for shape, mode in DRYRUN_CELLS:
+        procs.append(((shape, mode), subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "granite_8b", "--shape", shape, "--mesh", "pod", "--mode", mode],
+            env=env, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    return time.time(), procs
+
+
+def stop_dryrun(procs):
+    for _, proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def finish_dryrun(t0, procs, card):
+    """Wait for (d)'s cells; each must reach status "ok" and fit in the
+    card's 80e9 B."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import HBM_PER_CHIP
+    for (shape, mode), proc in procs:
+        try:
+            out, err = proc.communicate(timeout=max(
+                1.0, DRYRUN_TIMEOUT_S - (time.time() - t0)))
+        except subprocess.TimeoutExpired:
+            fail(f"[11d] dry-run {shape} x {mode} ran over "
+                 f"{DRYRUN_TIMEOUT_S} s")
+        path = dryrun.OUT_DIR / f"granite_8b__{shape}__pod__{mode}.json"
+        if proc.returncode != 0 or not path.is_file():
+            fail(f"[11d] dry-run {shape} x {mode} exited "
+                 f"{proc.returncode}: {(out + err)[-3000:]}")
+        rec = json.loads(path.read_text())
+        if rec["status"] != "ok":
+            fail(f"[11d] dry-run {shape} x {mode}: {rec['status']} "
+                 f"{rec.get('error')}")
+        s, r = rec["summary"], rec["roofline"]
+        say(f"[11d] dry-run granite_8b x {shape} x pod (16x16) x {mode}, "
+            f"rank 0 of 256 on this machine's CPU: peak {s['peak_bytes_est']:.4e}"
+            f" B of {HBM_PER_CHIP:.0e} (arguments {s['arg_bytes']:.4e}), "
+            f"fits {rec['fits_hbm']}; FLOPs {s['flops_per_chip']:.4e}, bytes "
+            f"{s['bytes_per_chip']:.4e}; collectives {s['n_collective_ops']} "
+            f"ops, link bytes by type {s['by_type']}; terms on the H100's "
+            f"datasheet (compute {r['t_compute_s']:.4f} s, memory "
+            f"{r['t_memory_s']:.4f} s, collective {r['t_collective_s']:.4f} "
+            f"s, {r['dominant']}), useful {r['useful_flops_ratio']:.3f}; "
+            f"ran {rec['run_s']} s")
+        if not rec["fits_hbm"]:
+            fail(f"[11d] dry-run {shape} x {mode} does not fit: peak "
+                 f"{s['peak_bytes_est']:.4e} B")
+    wall = time.time() - t0
+    say(f"[11d] the {len(procs)} dry-run cells took {wall:.1f} s of wall "
+        f"together (budget {DRYRUN_BUDGET_S:g} s) {card}")
+
+
+def _local(t):
+    """A DTensor's shard on the 1x1 mesh (the whole tensor), or ``t``."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def roofline_line(name, summary, ms, model_flops, card):
+    """(c): the counter's FLOPs and bytes, the CUDA-event median time, the
+    two roofline terms on the H100's datasheet, the achieved share and the
+    useful-FLOPs ratio."""
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
+    t_c = summary["flops_per_chip"] / PEAK_FLOPS_BF16 * 1e3
+    t_m = summary["bytes_per_chip"] / HBM_BW * 1e3
+    dom = "compute" if t_c >= t_m else "memory"
+    say(f"[11c] {name}: counted {summary['flops_per_chip']:.6e} FLOP "
+        f"(kernels {summary['kernel_flops']}), {summary['bytes_per_chip']:.6e}"
+        f" B unfused; median {ms:.3f} ms (CUDA events); t_compute "
+        f"{t_c:.3f} ms, t_memory {t_m:.3f} ms, dominant {dom}, achieved "
+        f"{max(t_c, t_m) / ms:.4f} of that bound; useful_flops_ratio "
+        f"{model_flops / summary['flops_per_chip']:.4f} (model FLOPs "
+        f"{model_flops:.6e}); {card}")
+
+
+def sharded_serve(torch, configs, model, steps, ops, fa, dec, mesh, card):
+    """(a) granite_8b at full width and depth, bf16: the sharded prefill
+    (B=8, prompt 2048) and SHARD_DECODE sharded decode steps against
+    model.prefill / decode_step on the same weights, bit for bit, with a
+    control one position off; then (c) for the prefill and one decode
+    step."""
+    cfg = configs.get_config("granite_8b")
+    B, P, n = SERVE_B, SERVE_P, SHARD_DECODE
+    V = cfg.vocab_size
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+        device="cuda")
+    prompt = torch.randint(0, V, (B, P), dtype=torch.int32, device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(5))
+    bp = steps.build_step(cfg, configs.ShapeConfig("serve", P, B, "prefill"),
+                          mesh, "prefill")
+    bd = steps.build_step(cfg, configs.ShapeConfig("serve", P + n + 1, B,
+                                                   "decode"), mesh, "decode")
+    pos = lambda i: torch.full((B,), P + i, dtype=torch.int32, device="cuda")
+    greedy = lambda lg: lg[:, -1, :V].argmax(-1)
+
+    fa.reset_launches()
+    dec.reset_launches()
+    cache = model.init_cache(cfg, B, P + n + 1, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    low_p = steps.lower_step(bp, mesh, (params, {"tokens": prompt}, cache))
+    lg, dcache = low_p.run()
+    torch.cuda.synchronize()
+    t_pre = time.time() - t0
+    dparams = low_p.args[0]
+    got = [_local(lg).clone()]
+    toks = [greedy(got[-1])]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for i in range(n):
+        step = {"tokens": toks[-1][:, None].to(torch.int32),
+                "positions": pos(i)}
+        lg, dcache = steps.lower_step(bd, mesh, (dparams, step,
+                                                 dcache)).run()
+        got.append(_local(lg).clone())
+        toks.append(greedy(got[-1]))
+    torch.cuda.synchronize()
+    t_dec = (time.time() - t0) / n
+    launches = {"flash_attention": fa.LAUNCHES["flash_attention"],
+                "decode_attention": dec.LAUNCHES["decode_attention"]}
+    want = {"flash_attention": cfg.n_layers,
+            "decode_attention": cfg.n_layers * n}
+    if launches != want:
+        fail(f"[11a] sharded serving launches {launches}, expected {want}")
+
+    # the unsharded path on the same weights
+    ref_cache = model.init_cache(cfg, B, P + n + 1, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    lg = model.prefill(params, cfg, {"tokens": prompt}, ref_cache,
+                       last_only=True)[0]
+    torch.cuda.synchronize()
+    t_pre_plain = time.time() - t0
+    saved = {k: v.clone() for k, v in ref_cache.items()}
+    plain = [lg]
+    ptoks = [greedy(lg)]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for i in range(n):
+        step = {"tokens": ptoks[-1][:, None].to(torch.int32),
+                "positions": pos(i)}
+        lg = model.decode_step(params, cfg, step, ref_cache)[0]
+        plain.append(lg)
+        ptoks.append(greedy(lg))
+    torch.cuda.synchronize()
+    t_dec_plain = (time.time() - t0) / n
+    same_logits = all(torch.equal(a, b) for a, b in zip(got, plain))
+    same_toks = all(torch.equal(a, b) for a, b in zip(toks, ptoks))
+    # the control: the first decode step one position on
+    ctrl = model.decode_step(params, cfg, {
+        "tokens": ptoks[0][:, None].to(torch.int32), "positions": pos(1)},
+        saved)[0]
+    ctrl_rel = float((ctrl[..., :V].float() - got[1][..., :V].float()).norm()
+                     / got[1][..., :V].float().norm())
+    del saved, ref_cache
+    say(f"[11a] granite_8b sharded (1x1 mesh {tuple(mesh.shape)}, bf16, "
+        f"B={B}, prompt {P}): prefill {t_pre:.3f} s (unsharded "
+        f"{t_pre_plain:.3f} s), decode {t_dec * 1e3:.2f} ms a step eager "
+        f"(unsharded {t_dec_plain * 1e3:.2f} ms); launches {launches}; "
+        f"logits of the prefill and {n} steps bit for bit equal to the "
+        f"unsharded path: {same_logits}; greedy tokens equal: {same_toks}; "
+        f"the control (first step one position on): equal "
+        f"{torch.equal(ctrl, got[1])}, relative L2 {ctrl_rel:.3e}; {card}")
+    if not (same_logits and same_toks):
+        fail("[11a] the sharded steps differ from model.prefill / "
+             "decode_step")
+    if torch.equal(ctrl, got[1]):
+        fail("[11a] the step one position on passes the check")
+
+    # (c) prefill and one decode step under the counter, then timed
+    _, s_pre = low_p.cost()
+    ms_pre = median_ms(torch, low_p.run, 3, warmup=0)
+    step0 = {"tokens": toks[0][:, None].to(torch.int32), "positions": pos(0)}
+    low_d = steps.lower_step(bd, mesh, (dparams, step0, dcache))
+    _, s_dec = low_d.cost()
+    ms_dec = median_ms(torch, low_d.run, 3, warmup=0)
+    d, H, KV, hd, L = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                       cfg.n_layers)
+    per_layer = d * (H + 2 * KV) * hd + H * hd * d + 3 * d * cfg.d_ff
+    flash = L * ops.flash_flops(B, P, P, H, hd, True)
+    exact = 2.0 * L * per_layer * B * P + 2.0 * cfg.padded_vocab * d * B \
+        + flash
+    N = cfg.active_param_count()
+    literal = 2.0 * N * B * P + flash
+    ratio = s_pre["flops_per_chip"] / exact
+    say(f"[11c] prefill's counted FLOPs against the analytic count of its "
+        f"matmuls (2 x {L} x {per_layer} x {B * P} tokens + the head at "
+        f"the last position + flash {flash:.6e}) = {exact:.6e}: ratio "
+        f"{ratio:.6f} (band {FLOP_BAND}); against 2 N tokens + flash = "
+        f"{literal:.6e} (N = {N}, whose embedding is a lookup and whose head "
+        f"runs at one position here): {s_pre['flops_per_chip'] / literal:.6f}")
+    if not FLOP_BAND[0] <= ratio <= FLOP_BAND[1]:
+        fail(f"[11c] prefill's counted FLOPs {s_pre['flops_per_chip']:.6e} "
+             f"at {ratio:.6f} of the analytic count, outside {FLOP_BAND}")
+    roofline_line(f"prefill (B={B}, {P} tokens)", s_pre, ms_pre,
+                  2.0 * N * B * P, card)
+    roofline_line(f"decode step (B={B}, position {P})", s_dec, ms_dec,
+                  2.0 * N * B, card)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    say(f"[11a] peak device memory {peak:.2f} GB")
+    del params, dparams, cache, dcache, low_p, low_d, got, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def sharded_round(torch, configs, trainer, lm_data, tree, steps, st, mesh,
+                  card):
+    """(b) one ADMM round through build_step(..., "admm") at phase 9's cut
+    (granite_8b at full width, 4 of 36 layers, batch 8 x 1024, K=4, prox
+    l1) on the 1x1 mesh, so W=1, against trainer.make_round_step at W=1
+    from a copy of the same state, bit for bit; then (c) for the round."""
+    p = TRAIN_FULL
+    cfg = dataclasses.replace(configs.get_config("granite_8b"),
+                              n_layers=p["layers"])
+    kw = dict(local_steps=p["K"], prox="l1", lam=p["lam"])
+    ccfg = trainer.ConsensusConfig(n_workers=1, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.init_state(
+        cfg, ccfg, generator=torch.Generator(device="cuda").manual_seed(0),
+        device="cuda")
+    twin = tree.tree_map(lambda t: t.clone(), state)
+    shape = configs.ShapeConfig("train", p["seq"], p["batch"], "train")
+    batch = {k: v[None] for k, v in
+             lm_data.batch_for(cfg, shape, 0, device="cuda").items()}
+    bundle = steps.build_step(cfg, shape, mesh, "admm", consensus=kw)
+    n_leaves = len(tree.leaves(state.z))
+    st.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    new, m = steps.lower_step(bundle, mesh, (state, batch)).run()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = st.LAUNCHES["soft_threshold"]
+    want, wm = trainer.make_round_step(cfg, ccfg)(twin, batch)
+    same_m = {k: torch.equal(_local(m[k]), wm[k]) for k in wm}
+    same_leaves = all(torch.equal(_local(a), b) for a, b in zip(
+        tree.leaves(new), tree.leaves(want)))
+    mv = {k: float(_local(v)) for k, v in m.items()}
+    say(f"[11b] {cfg.name} at full width, {cfg.n_layers} of 36 layers, "
+        f"W=1 (1x1 mesh), K={p['K']}, batch {p['batch']} x {p['seq']}, l1: "
+        f"the sharded round {wall:.3f} s; metrics {mv}; equal to "
+        f"make_round_step at W=1: {same_m}, every leaf bit for bit: "
+        f"{same_leaves}; z-update launches {launches} (= {n_leaves} "
+        f"leaves); {card}")
+    if not all(same_m.values()) or not same_leaves:
+        fail("[11b] the sharded round differs from make_round_step")
+    if launches != n_leaves:
+        fail(f"[11b] {launches} z-update launches, expected {n_leaves}")
+    del twin, want, wm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the round under the counter, then timed (each a further round)
+    holder = [new]
+
+    def again():
+        holder[0] = steps.lower_step(bundle, mesh, (holder[0], batch)).run()[0]
+    (holder[0], _), s = steps.lower_step(bundle, mesh,
+                                         (holder[0], batch)).cost()
+    ms = median_ms(torch, again, 3, warmup=0)
+    roofline_line(f"ADMM round (W=1, K={p['K']}, {p['batch']} x "
+                  f"{p['seq']})", s, ms,
+                  6.0 * cfg.active_param_count() * bundle.meta["tokens"],
+                  card)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    say(f"[11b] peak device memory {peak:.2f} GB (the state and its copy "
+        f"for the unsharded round)")
+    del holder, new, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_sharded(torch, configs, model, trainer, lm_data, tree, ops, fa,
+                  dec, st, card):
+    """Phase 11 (a)-(d); returns the launches of (a) and (b).  (d) starts
+    after (a)-(c), so their host-bound times are not taken with the
+    dry-run's processes on the same cores."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps
+    mesh = mesh_mod.make_host_mesh()
+    try:
+        with torch.no_grad():
+            launches = sharded_serve(torch, configs, model, steps, ops, fa,
+                                     dec, mesh, card)
+        launches["soft_threshold"] = sharded_round(
+            torch, configs, trainer, lm_data, tree, steps, st, mesh, card)
+    finally:
+        mesh_mod.close_host_mesh()
+    t_dry, procs = start_dryrun()
+    try:
+        finish_dryrun(t_dry, procs, card)
+    finally:
+        stop_dryrun(procs)
+    return launches
+
+
 def time_admm_kernels(torch, src: Path):
     """The margin kernel's median time per call (logistic, paper shape)
     and the z-update's device time per call in a CUDA graph (D = 10 000
@@ -3011,7 +3357,7 @@ def time_admm_kernels(torch, src: Path):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--src", type=Path,
                     help="run no phase: time the margin kernel and the "
@@ -3019,8 +3365,8 @@ def main(argv=None):
                          "and print one JSON line (see time_admm_kernels)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
-    if not phases <= set(range(1, 11)):
-        fail(f"--phases takes phases 1 to 10, got {sorted(phases)}")
+    if not phases <= set(range(1, 12)):
+        fail(f"--phases takes phases 1 to 11, got {sorted(phases)}")
 
     if not (SRC / "repro_torch" / "api.py").is_file():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
@@ -3091,7 +3437,7 @@ def main(argv=None):
     solo, solo_launches = {}, {}
     # phase 4's sparse rows, which phase 8 reads when phase 4 ran
     paper_rows = {}
-    for phase in (4, 5, 6, 7, 8, 9, 10):
+    for phase in (4, 5, 6, 7, 8, 9, 10, 11):
         if phase not in phases:
             continue
         gc.collect()
@@ -3123,6 +3469,11 @@ def main(argv=None):
             phase_newton(torch, api, problems, rt, AdmmOptions, lv, st,
                          paper_rows)
             paper_rows.clear()
+        elif phase == 11:
+            got = phase_sharded(torch, configs, model, trainer, lm_data,
+                                tree, ops, fa, dec, st, card)
+            for k, n in got.items():
+                by_phase[k]["11"] = n
         elif phase == 10:
             phase_families_reduced(torch, configs, model, serve, moe, fa,
                                    dec)

@@ -16,6 +16,7 @@ from repro_torch.configs.base import (
     ShapeConfig,
     cell_is_applicable,
     get_shape,
+    input_specs,
 )
 
 ARCH_IDS = (
@@ -96,5 +97,6 @@ __all__ = [
     "cell_is_applicable",
     "get_config",
     "get_shape",
+    "input_specs",
     "reduced",
 ]

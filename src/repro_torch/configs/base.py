@@ -2,15 +2,17 @@
 ``repro/configs/base.py`` without JAX).
 
 A ``ModelConfig`` fully describes one backbone; a ``ShapeConfig`` describes
-one (seq_len, global_batch, kind) workload cell.  The reference's
-``input_specs`` (ShapeDtypeStructs for its TPU dry-run) is not ported.
-The port ignores ``attn_head_pad``: it pads query heads for a TPU mesh and
+one (seq_len, global_batch, kind) workload cell; ``input_specs`` describes
+one step's inputs as ``meta`` tensors (the reference's ShapeDtypeStructs),
+which the dry-run and ``launch/steps.py`` build on.  The port ignores ``attn_head_pad``: it pads query heads for a TPU mesh and
 does not change the math.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
+
+import torch
 
 # ---------------------------------------------------------------------------
 # Model configuration
@@ -212,3 +214,38 @@ def cell_is_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]
             "by the shape's sub-quadratic requirement (DESIGN.md §4)"
         )
     return True, ""
+
+
+# ---------------------------------------------------------------------------
+# Input specs — meta-tensor stand-ins for the dry-run
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+    """One step's inputs as ``meta`` tensors (shape and dtype, nothing
+    allocated), with the reference's keys:
+
+    train   -> {tokens/embeds, labels}
+    prefill -> {tokens/embeds}
+    decode  -> {tokens/embeds (1 new position), positions}  (the cache is
+               described by ``models.model.init_cache(..., abstract=True)``)
+    """
+    b = shape.global_batch
+    s = shape.seq_len if shape.kind != "decode" else 1
+
+    def meta(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+    specs = {}
+    if cfg.family == "audio":
+        # modality frontend is a stub: precomputed frame embeddings
+        specs["embeds"] = meta((b, s, cfg.d_model), torch.bfloat16)
+    else:
+        specs["tokens"] = meta((b, s), torch.int32)
+    if cfg.family == "vlm":
+        specs["img_embeds"] = meta((b, cfg.n_img_tokens, cfg.d_model),
+                                   torch.bfloat16)
+    if shape.kind == "train":
+        specs["labels"] = meta((b, s), torch.int32)
+    if shape.kind == "decode":
+        specs["positions"] = meta((b,), torch.int32)
+    return specs

@@ -15,6 +15,18 @@ The attention kernels have no backward and autograd does not see a ctypes
 launch: on the card, ``flash_attention`` and ``decode_attention`` raise when
 grad mode is on and an input requires grad, rather than return a result
 whose inputs would silently get no gradient.
+
+DTensor inputs (a sharded step, ``launch/steps.py``): a DTensor has no
+storage of its own, so the wrappers marked ``on_shards`` follow the rules
+of ``parallel/shards.py``.  On the card an attention kernel runs on each
+rank's local shards where that is exact, and raises otherwise (the decode
+cache's sequence-slot axis sharded over ``"model"`` among them); nothing
+is gathered to run a kernel.  On the CPU the plain attention runs on the
+DTensors.  The z-update takes any placement on either device.
+
+Each kernel call reports its operations and bytes to the hooks in
+``KERNEL_HOOKS`` (``launch/op_analysis.py`` installs one while it counts a
+step): a ctypes launch is invisible to PyTorch's dispatcher.
 """
 from __future__ import annotations
 
@@ -26,6 +38,37 @@ from repro_torch.kernels import logistic_vjp as lv_k
 from repro_torch.kernels import ref
 from repro_torch.kernels import soft_threshold as st_k
 from repro_torch.models import attention as attn_mod
+from repro_torch.parallel.shards import on_shards
+
+# callables hook(name, flops, n_bytes), called once per kernel call on the
+# card (per rank for DTensor operands)
+KERNEL_HOOKS = []
+
+
+def _nbytes(*tensors) -> float:
+    return float(sum(t.numel() * t.element_size() for t in tensors))
+
+
+def _report(name: str, flops: float, n_bytes: float) -> None:
+    for hook in KERNEL_HOOKS:
+        hook(name, float(flops), float(n_bytes))
+
+
+def flash_flops(B: int, S: int, Skv: int, H: int, hd: int, causal: bool,
+                window=None) -> float:
+    """4 B H hd times the (query, key) pairs the kernel computes: every
+    pair without a mask; under the causal mask, query i (of the last S of
+    Skv positions) sees min(i + 1 + Skv - S, window) keys."""
+    if not causal:
+        return 4.0 * B * H * hd * S * Skv
+    off = Skv - S
+    pairs = sum(min(i + 1 + off, window or i + 1 + off) for i in range(S))
+    return 4.0 * B * H * hd * pairs
+
+
+def decode_flops(B: int, H: int, hd: int, live: float) -> float:
+    """4 H hd per live cache slot of each row; ``live`` summed over rows."""
+    return 4.0 * H * hd * live
 
 
 def _margin(A, b, x, mask, *, loss: str, gamma: float):
@@ -83,15 +126,22 @@ def fused_softmax_vjp(A, y, x, *, n_classes: int, mask=None):
     return f, g.reshape(x.shape)
 
 
-def fused_z_update(omega_bar, z_old, thr: float):
+@on_shards("z_update")
+def fused_z_update(omega_bar, z_old, thr):
     """z_new = S(omega_bar; thr), ||z_new - z_old||² and nnz(z_new).
 
-    omega_bar, z_old (D,); thr a scalar, rounded to float32."""
+    omega_bar, z_old of one shape (a vector for the kernel, or any shape,
+    flattened in memory order); thr a scalar (a float or a 0-d tensor),
+    rounded to float32 — on the card it is the kernel's argument, read
+    back to the host."""
     if omega_bar.is_cuda:
-        return st_k.soft_threshold_cuda(omega_bar.contiguous(),
-                                        z_old.contiguous(), thr)
+        omega, z = omega_bar.contiguous(), z_old.contiguous()
+        zn, ssq, nnz = st_k.soft_threshold_cuda(omega.view(-1), z.view(-1),
+                                                float(thr))
+        _report("soft_threshold", 0.0, _nbytes(omega, z, zn))
+        return zn.view(omega.shape), ssq, nnz
     return ref.soft_threshold_ref(
-        omega_bar, z_old, torch.tensor(thr, dtype=torch.float32))
+        omega_bar, z_old, torch.as_tensor(thr, dtype=torch.float32))
 
 
 def refuse_autograd(name: str, *tensors) -> None:
@@ -104,16 +154,21 @@ def refuse_autograd(name: str, *tensors) -> None:
             f"model.loss_fn runs) or call it under torch.no_grad()")
 
 
+@on_shards("kernel")
 def flash_attention(q, k, v, *, causal: bool = True, window=None):
     """q (B,S,H,hd), k/v (B,Skv,KV,hd) -> (B,S,H,hd), in the model's layout
     (no transpose on either path)."""
     if q.is_cuda:
         refuse_autograd("flash_attention", q, k, v)
-        return fa_k.flash_attention_cuda(q, k, v, causal=causal,
-                                         window=window)
+        o = fa_k.flash_attention_cuda(q, k, v, causal=causal, window=window)
+        _report("flash_attention", flash_flops(
+            q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.shape[3],
+            causal, window), _nbytes(q, k, v, o))
+        return o
     return attn_mod.block_attention(q, k, v, causal=causal, window=window)
 
 
+@on_shards("kernel")
 def cross_attention(q, k, v):
     """q (B, Sq, H, hd), k/v (B, T, KV, hd) -> (B, Sq, H, hd), every query
     over all T keys.  On the card a prefill (Sq > 1) runs the flash
@@ -121,19 +176,38 @@ def cross_attention(q, k, v):
     with every slot live (position T - 1)."""
     if q.is_cuda:
         refuse_autograd("cross_attention", q, k, v)
-        if q.shape[1] == 1:
-            last = torch.full((q.shape[0],), k.shape[1] - 1,
-                              dtype=torch.int32, device=q.device)
-            return dec_k.decode_attention_cuda(q, k, v, last)
-        return fa_k.flash_attention_cuda(q, k, v, causal=False)
+        B, S, H, hd = q.shape
+        if S == 1:
+            last = torch.full((B,), k.shape[1] - 1, dtype=torch.int32,
+                              device=q.device)
+            o = dec_k.decode_attention_cuda(q, k, v, last)
+            _report("decode_attention", decode_flops(B, H, hd,
+                                                     B * k.shape[1]),
+                    _nbytes(q, k, v, o))
+            return o
+        o = fa_k.flash_attention_cuda(q, k, v, causal=False)
+        _report("flash_attention_noncausal",
+                flash_flops(B, S, k.shape[1], H, hd, False),
+                _nbytes(q, k, v, o))
+        return o
     return attn_mod.cross_attention(q, k, v)
 
 
+@on_shards("kernel")
 def decode_attention(q, k_cache, v_cache, positions):
     """q (B,1,H,hd), caches (B,Smax,KV,hd), positions (B,) -> (B,1,H,hd).
     On the card the cache is read in place; positions go as int32."""
     if q.is_cuda:
         refuse_autograd("decode_attention", q, k_cache, v_cache)
-        return dec_k.decode_attention_cuda(
-            q, k_cache, v_cache, positions.to(torch.int32).contiguous())
+        pos = positions.to(torch.int32).contiguous()
+        o = dec_k.decode_attention_cuda(q, k_cache, v_cache, pos)
+        if KERNEL_HOOKS:          # the live slots are what the kernel reads
+            live = float(torch.clamp(pos.long() + 1,
+                                     max=k_cache.shape[1]).sum())
+            row = 2 * k_cache.shape[2] * k_cache.shape[3] \
+                * k_cache.element_size()
+            _report("decode_attention", decode_flops(
+                q.shape[0], q.shape[2], q.shape[3], live),
+                _nbytes(q, o, pos) + live * row)
+        return o
     return attn_mod.decode_attention(q, k_cache, v_cache, positions)

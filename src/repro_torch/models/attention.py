@@ -13,6 +13,10 @@ query heads.
 
 Unlike the reference, the port updates KV caches in place
 (``update_cache``), so a decode step does not copy the cache.
+
+On DTensors (a sharded step) the functions marked ``on_shards`` follow
+the rules of ``parallel/shards.py``: the attention of each rank's own
+query heads, and a cache write into each rank's own slots.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from typing import Optional
 import torch
 
 from repro_torch.models import layers
+from repro_torch.parallel.shards import on_shards
 
 NEG_INF = -1e30
 
@@ -61,10 +66,10 @@ def _mask(Sq, Skv, causal, window, device):
 
 
 def _grouped(q, KV):
-    B, Sq, H, hd = q.shape
-    return q.reshape(B, Sq, KV, H // KV, hd)
+    return layers.split_dim(q, 2, (KV, q.shape[2] // KV))
 
 
+@on_shards("heads")
 def block_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None,
                     chunk: int = 512) -> torch.Tensor:
@@ -119,6 +124,7 @@ def naive_attention(q, k, v, *, causal: bool = True,
 # Cross attention (no mask, short kv): chunked over q only
 # ---------------------------------------------------------------------------
 
+@on_shards("heads")
 def cross_attention(q, k, v, *, chunk_q: int = 512) -> torch.Tensor:
     """q (B, Sq, H, hd), k/v (B, T, KV, hd) -> (B, Sq, H, hd): every query
     attends to all T keys.  The reference's plain version: float32 scores
@@ -153,7 +159,7 @@ def decode_attention(q, k_cache, v_cache, positions) -> torch.Tensor:
     position >= Smax and attention is order-independent over slots."""
     B, _, H, hd = q.shape
     _, Smax, KV, _ = k_cache.shape
-    qg = q.reshape(B, KV, H // KV, hd).float()
+    qg = layers.split_dim(q[:, 0], 1, (KV, H // KV)).float()
     s = torch.einsum("bkgd,bckd->bkgc", qg, k_cache.float()) * hd ** -0.5
     valid = (torch.arange(Smax, device=q.device)[None, :]
              <= positions.to(q.device)[:, None])              # (B, Smax)
@@ -163,6 +169,7 @@ def decode_attention(q, k_cache, v_cache, positions) -> torch.Tensor:
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
+@on_shards("kv_write")
 def update_cache(cache: torch.Tensor, new: torch.Tensor,
                  positions: torch.Tensor, *, ring: bool = False):
     """Write one token per sequence, in place: cache (B, Smax, KV, hd),

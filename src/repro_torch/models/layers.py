@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import deterministic
+from repro_torch.parallel.shards import on_shards
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -152,6 +153,17 @@ def grad_downcast(x: torch.Tensor) -> torch.Tensor:
     return _GradDowncast.apply(x)
 
 
+@on_shards("split_dim")
+def split_dim(x: torch.Tensor, dim: int, sizes) -> torch.Tensor:
+    """``x`` with ``dim`` cut into ``sizes`` (a view)."""
+    return x.unflatten(dim, sizes)
+
+
+def split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(..., n * hd) -> (..., n, hd)."""
+    return split_dim(x, -1, (n, hd))
+
+
 # ---------------------------------------------------------------------------
 # Embedding / head
 # ---------------------------------------------------------------------------
@@ -170,12 +182,17 @@ class _Embed(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         tokens, = ctx.saved_tensors
-        V, d = ctx.table_shape
-        grad = torch.zeros((V, d), dtype=ct.dtype, device=ct.device)
-        with deterministic():
-            grad.index_put_((tokens.reshape(-1).long(),), ct.reshape(-1, d),
-                            accumulate=True)
-        return grad, None
+        return _embed_grad(ct, tokens, ctx.table_shape[0]), None
+
+
+@on_shards("embed_grad")
+def _embed_grad(ct, tokens, V: int) -> torch.Tensor:
+    d = ct.shape[-1]
+    grad = torch.zeros((V, d), dtype=ct.dtype, device=ct.device)
+    with deterministic():
+        grad.index_put_((tokens.reshape(-1).long(),), ct.reshape(-1, d),
+                        accumulate=True)
+    return grad
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

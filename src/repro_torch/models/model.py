@@ -29,8 +29,16 @@ Differences from the reference, none of which changes the math:
   * caches are updated in place: ``prefill`` and ``decode_step`` write
     into the ``cache`` they are given and return that same dict;
   * the RoPE tables are computed once per call and shared by the layers;
-  * ``attn_head_pad`` (a TPU mesh padding) is ignored, and the sharding
-    hints (``constrain``) have no counterpart.
+  * ``attn_head_pad`` (a TPU mesh padding) is ignored.
+
+The sharding hints sit where the reference's do: ``constrain`` on the
+queries (``bshd``), the residual stream after each feed-forward and after
+the embedding (``btd``) and the logits (``btv``); and at one more place,
+the residual after attention (``btd``), which the reference's partitioner
+places by itself: without it DTensor's per-operator choice leaves the
+row-parallel output partial and the residual stream split over d, and
+then gathers the MLP's weights.  They act only on DTensors under a rule
+set (``parallel/ctx.py``, installed by ``launch/steps.lower_step``).
 """
 from __future__ import annotations
 
@@ -45,6 +53,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import attention, layers, moe, ssm
+from repro_torch.parallel.ctx import constrain
 from repro_torch.tree import flatten, tree_map
 
 Params = Dict[str, Any]
@@ -251,13 +260,15 @@ def _attn_seq(p, cfg: ModelConfig, x, positions, *, window, rope, attend):
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-    q = layers.dense(p["attn"]["wq"], h).reshape(B, S, H, hd)
-    k = layers.dense(p["attn"]["wk"], h).reshape(B, S, KV, hd)
-    v = layers.dense(p["attn"]["wv"], h).reshape(B, S, KV, hd)
+    q = layers.split_heads(layers.dense(p["attn"]["wq"], h), H, hd)
+    k = layers.split_heads(layers.dense(p["attn"]["wk"], h), KV, hd)
+    v = layers.split_heads(layers.dense(p["attn"]["wv"], h), KV, hd)
     q = layers.apply_rope(q, positions, cfg.rope_theta, tables=rope)
     k = layers.apply_rope(k, positions, cfg.rope_theta, tables=rope)
+    q = constrain(q, "bshd")
     o = attend(q, k, v, causal=True, window=window)
-    x = x + layers.dense(p["attn"]["wo"], o.reshape(B, S, H * hd))
+    x = constrain(x + layers.dense(p["attn"]["wo"], o.reshape(B, S, H * hd)),
+                  "btd")
     return x, (k, v)
 
 
@@ -271,7 +282,7 @@ def _ff_seq(p, cfg: ModelConfig, x):
     else:
         y = layers.mlp(p["mlp"], h)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + y, aux
+    return constrain(x + y, "btd"), aux
 
 
 def _block_seq(p, cfg: ModelConfig, x, positions, *, rope, attend):
@@ -287,7 +298,7 @@ def _cross_block_seq(p, cfg: ModelConfig, x, img_kv, *, cross):
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.hd
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-    q = layers.dense(p["xattn"]["wq"], h).reshape(B, S, H, hd)
+    q = layers.split_heads(layers.dense(p["xattn"]["wq"], h), H, hd)
     o = cross(q, *img_kv)
     o = layers.dense(p["xattn"]["wo"], o.reshape(B, S, H * hd))
     x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * o
@@ -297,10 +308,9 @@ def _cross_block_seq(p, cfg: ModelConfig, x, img_kv, *, cross):
 
 def _img_kv(p, cfg: ModelConfig, img_embeds):
     """Project image embeddings to cross-attn K/V (per cross block)."""
-    B, T, _ = img_embeds.shape
-    shape = (B, T, cfg.n_kv_heads, cfg.hd)
-    return (layers.dense(p["xattn"]["wk"], img_embeds).reshape(shape),
-            layers.dense(p["xattn"]["wv"], img_embeds).reshape(shape))
+    return tuple(layers.split_heads(layers.dense(p["xattn"][w], img_embeds),
+                                    cfg.n_kv_heads, cfg.hd)
+                 for w in ("wk", "wv"))
 
 
 # -- mamba2 ------------------------------------------------------------------
@@ -416,7 +426,7 @@ def _embed_input(params, cfg: ModelConfig, batch) -> torch.Tensor:
 
 
 def _forward(params, cfg: ModelConfig, batch, *, remat: bool, attend, cross):
-    x = _embed_input(params, cfg, batch)
+    x = constrain(_embed_input(params, cfg, batch), "btd")
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     rope = layers.rope_tables(positions, cfg.hd, cfg.rope_theta) \
         if cfg.n_heads else None
@@ -467,7 +477,7 @@ def _forward(params, cfg: ModelConfig, batch, *, remat: bool, attend, cross):
         torch.zeros((), dtype=torch.float32, device=x.device)
     x = layers.grad_downcast(x)       # cotangents in x's dtype upstream
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _lm_logits(params, cfg, x), aux_total
+    return constrain(_lm_logits(params, cfg, x), "btv"), aux_total
 
 
 def forward(params, cfg: ModelConfig, batch, *, remat: bool = True):
@@ -505,14 +515,15 @@ def _attn_cache_len(cfg: ModelConfig, max_len: int) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               device="cuda") -> Params:
+               device="cuda", abstract: bool = False) -> Params:
     """The decode cache, zeros, in the reference's layout: k and v of
     (L, B, Smax, KV, hd), Smax = max_len (or the sliding window, a ring);
     the VLM's (G, n_self, ...) and its image K/V (G, B, n_img_tokens, KV,
     hd); the hybrid's float32 ssm and conv states per mamba block and
     one K/V per shared-attention application (G, ...); the ssm's float32
-    wkv state and token shifts per layer."""
-    dev = resolve_device(device)
+    wkv state and token shifts per layer.  ``abstract`` describes it on
+    the ``meta`` device instead (shapes and dtypes, nothing allocated)."""
+    dev = torch.device("meta") if abstract else resolve_device(device)
     dtype, f32 = layers.dtype_of(cfg), torch.float32
 
     def zeros(shape, dt=dtype):
@@ -549,9 +560,9 @@ def _write_prefill(cache_kv, new, Smax: int):
     if S <= Smax:
         cache_kv[:, :S] = new
         return cache_kv
-    # keep the last Smax tokens at slot = pos % Smax
-    idx = torch.arange(S - Smax, S, device=new.device) % Smax
-    cache_kv[:, idx] = new[:, S - Smax:]
+    # keep the last Smax tokens at slot = pos % Smax: a roll of them,
+    # copied whole (a sharded cache takes it shard by shard)
+    cache_kv.copy_(torch.roll(new[:, S - Smax:], (S - Smax) % Smax, 1))
     return cache_kv
 
 
@@ -653,15 +664,16 @@ def _attn_decode(p, cfg: ModelConfig, x, positions, ck, cv, *, ring: bool,
     B = x.shape[0]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-    q = layers.dense(p["attn"]["wq"], h).reshape(B, 1, H, hd)
-    k = layers.dense(p["attn"]["wk"], h).reshape(B, 1, KV, hd)
-    v = layers.dense(p["attn"]["wv"], h).reshape(B, 1, KV, hd)
+    q = layers.split_heads(layers.dense(p["attn"]["wq"], h), H, hd)
+    k = layers.split_heads(layers.dense(p["attn"]["wk"], h), KV, hd)
+    v = layers.split_heads(layers.dense(p["attn"]["wv"], h), KV, hd)
     q = layers.apply_rope(q, None, cfg.rope_theta, tables=rope)
     k = layers.apply_rope(k, None, cfg.rope_theta, tables=rope)
     attention.update_cache(ck, k, positions, ring=ring)
     attention.update_cache(cv, v, positions, ring=ring)
     o = ops.decode_attention(q, ck, cv, positions)
-    return x + layers.dense(p["attn"]["wo"], o.reshape(B, 1, H * hd))
+    return constrain(x + layers.dense(p["attn"]["wo"],
+                                      o.reshape(B, 1, H * hd)), "btd")
 
 
 def decode_step(params, cfg: ModelConfig, batch,

@@ -21,7 +21,14 @@ each slot's token (an empty slot reads a zero row: the one-hot sum of
 one term), the experts run as one batched matmul over all groups'
 slots, ``(E, groups * cap, d)``, and combine gathers each token's k
 expert outputs and sums them in float32, choice by choice in the
-order of the top-k, with no atomics, so a repeat is bit for bit.
+order of the top-k, with no atomics, so a repeat is bit for bit.  The
+reference's two ``moe_slots`` hints sit on the (E, groups * cap, d) slot
+buffers that take the place of its ``xe`` and ``ye``.
+
+On DTensors (a sharded step) the layer runs on each rank's own tokens
+with its d_ff slice of every expert (the rule "moe" of
+``parallel/shards.py``); the slot buffers are then local tensors, which
+the ``moe_slots`` hint leaves as they are.
 """
 from __future__ import annotations
 
@@ -31,6 +38,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.parallel.ctx import constrain
+from repro_torch.parallel.shards import on_shards
 
 
 def init_moe(d_model: int, d_ff: int, n_experts: int, top_k: int,
@@ -101,6 +110,7 @@ def _experts(p, xe: torch.Tensor) -> torch.Tensor:
     return torch.bmm(h, p["w_down"])
 
 
+@on_shards("moe")
 def moe_ff(p, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25,
            group_size: Optional[int] = None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -124,7 +134,8 @@ def moe_ff(p, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25,
     src = torch.full((n_slots + 1,), T, dtype=torch.long, device=x.device)
     src.scatter_(0, flat.reshape(-1), tok.reshape(-1))
     rows = torch.cat([x.reshape(T, d), x.new_zeros((1, d))])
-    ye = _experts(p, rows[src[:n_slots]].reshape(E, G * cap, d))
+    xe = constrain(rows[src[:n_slots]].reshape(E, G * cap, d), "moe_slots")
+    ye = constrain(_experts(p, xe), "moe_slots")
     ye = torch.cat([ye.reshape(n_slots, d), ye.new_zeros((1, d))])
 
     # the reference rounds the combine weights to x's dtype

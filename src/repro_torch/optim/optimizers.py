@@ -12,7 +12,12 @@ parameters and moments into the tensors they are given (and return them):
 at granite_8b's width a functional update would hold two copies of the
 float32 moments.  Every leaf is updated in flat chunks of ``CHUNK``
 elements, so the float32 temporaries stay a few hundred MB whatever the
-leaf; the arithmetic is elementwise, so chunking changes no result.
+leaf; the arithmetic is elementwise, so chunking changes no result (the
+sums over chunks are taken in chunk order).  DTensor leaves (a sharded
+step) are chunked shard by shard (``parallel/shards.py``), so a 1x1 mesh
+repeats the unsharded sums bit for bit.  ``sq_sum`` sums the global
+norm's squares across ranks that hold other parts of the tree (the ADMM
+workers of a sharded round).
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from typing import Any, Callable, Tuple
 
 import torch
 
+from repro_torch.parallel.shards import on_shards
 from repro_torch.tree import flatten, leaves, tree_map
 
 Tree = Any
@@ -46,6 +52,7 @@ class SgdConfig:
     grad_clip: float = 0.0
 
 
+@on_shards("flat_chunks")
 def flat_chunks(*tensors):
     """Matching flat views of at most ``CHUNK`` elements of tensors of one
     shape (contiguous)."""
@@ -55,13 +62,13 @@ def flat_chunks(*tensors):
         yield tuple(f[lo:lo + CHUNK] for f in flat)
 
 
-def _global_norm(tree: Tree) -> torch.Tensor:
+def _global_norm(tree: Tree, sq_sum=None) -> torch.Tensor:
     ls = leaves(tree)
     tot = torch.zeros((), dtype=torch.float32, device=ls[0].device)
     for leaf in ls:
         for (c,) in flat_chunks(leaf):
             tot = tot + torch.sum(torch.square(c.float()))
-    return torch.sqrt(tot)
+    return torch.sqrt(tot if sq_sum is None else sq_sum(tot))
 
 
 def _clip_scale(gnorm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -75,11 +82,11 @@ def clip_by_global_norm(grads: Tree, max_norm: float
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gnorm
 
 
-def _grads_in_f32(grads: Tree, grad_clip: float):
+def _grads_in_f32(grads: Tree, grad_clip: float, sq_sum=None):
     """(gf(g_chunk), gnorm): gf gives a chunk of a gradient in float32,
     clipped and rounded to the gradient's dtype first when a clip is set,
     as the reference's ``clip_by_global_norm`` returns it."""
-    gnorm = _global_norm(grads)
+    gnorm = _global_norm(grads, sq_sum)
     if not grad_clip:
         return (lambda g: g.float()), gnorm
     scale = _clip_scale(gnorm, grad_clip)
@@ -100,10 +107,10 @@ def adamw_init(params: Tree) -> Tree:
 
 
 def adamw_update(cfg: AdamWConfig, params: Tree, grads: Tree, state: Tree,
-                 lr_scale=1.0) -> Tuple[Tree, Tree, Tree]:
+                 lr_scale=1.0, *, sq_sum=None) -> Tuple[Tree, Tree, Tree]:
     """Returns (params, state, metrics); ``params`` and ``state``'s moments
     are updated in place."""
-    gf, gnorm = _grads_in_f32(grads, cfg.grad_clip)
+    gf, gnorm = _grads_in_f32(grads, cfg.grad_clip, sq_sum)
     step = state["step"] + 1
     t = step.float()
     bc1 = 1.0 - cfg.b1 ** t

@@ -1,0 +1,358 @@
+"""How the port's operations run on DTensor shards (a sharded step,
+``launch/steps.py``): the one module that decides it.
+
+Most of a sharded step is DTensor's own per-operator propagation.  A
+function of the model, kernel or optimizer layers that needs more is
+marked ``@on_shards(rule)``: on plain tensors it runs as written; when a
+positional argument is a DTensor, the call goes to
+``RULES[rule](fn, *args, **kw)`` with ``fn`` the function as written.  A
+rule runs ``fn`` on each rank's local shards where that is exact, and
+wraps the results back with the placements — and, for autograd, the
+gradient placements — that make it so; otherwise it hands the DTensors to
+``fn`` and DTensor's propagation.  The layers import nothing else of the
+distribution layer.
+
+  rule         marks                        on DTensors
+  heads        attention.block_attention,   each rank's own query heads
+               attention.cross_attention    against the K/V heads they read
+  split_dim    layers.split_dim             a dim split over ranks that do
+                                            not divide its outer part is
+                                            gathered first (GQA's 8 K/V
+                                            heads on 16 ranks)
+  kv_write     attention.update_cache       each rank writes the slots it
+                                            holds; nothing of the cache moves
+  embed_grad   layers._embed_grad           each rank's rows, partial sums
+  moe          moe.moe_ff                   each rank's tokens through its
+                                            d_ff slice of every expert
+  kernel       ops.flash_attention,         the card's kernel on local
+               ops.cross_attention,         shards where that is exact,
+               ops.decode_attention         else raises; the plain version
+                                            on the CPU
+  z_update     ops.fused_z_update           elementwise on each shard, the
+                                            two sums all-reduced
+  flat_chunks  optimizers.flat_chunks       each shard chunked as the
+                                            unsharded leaf is
+
+Two conventions hold for every rule: a local result wrapped back into a
+DTensor is contiguous, and so is a gradient handed back through
+``to_local`` (``local``).  DTensor takes the global strides to be
+contiguous, and a view of a transposed local shard fails.
+"""
+from __future__ import annotations
+
+import functools
+import math
+from typing import Callable, Dict
+
+import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from repro_torch.parallel.sharding import local_box
+
+RULES: Dict[str, Callable] = {}
+
+
+def on_shards(rule: str):
+    """Mark a function whose DTensor calls go to ``RULES[rule]``."""
+    def mark(fn):
+        @functools.wraps(fn)
+        def call(*args, **kw):
+            if any(isinstance(a, DTensor) for a in args):
+                return RULES[rule](fn, *args, **kw)
+            return fn(*args, **kw)
+        return call
+    return mark
+
+
+def _rule(name: str):
+    def register(fn):
+        RULES[name] = fn
+        return fn
+    return register
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def local(t: DTensor, grad_placements=None) -> torch.Tensor:
+    """This rank's shard of ``t``; its gradient goes back to ``t`` under
+    ``grad_placements`` (default: ``t``'s), contiguous."""
+    return _ContiguousGrad.apply(t.to_local(grad_placements=grad_placements))
+
+
+def wrap(x: torch.Tensor, mesh, placements, shape=None) -> DTensor:
+    """``x`` (contiguous) as this rank's shard of a DTensor of global
+    ``shape`` (default: ``x``'s)."""
+    shape = torch.Size(x.shape if shape is None else shape)
+    return DTensor.from_local(x.contiguous(), mesh, placements,
+                              run_check=False, shape=shape,
+                              stride=torch.empty(shape,
+                                                 device="meta").stride())
+
+
+# ---------------------------------------------------------------------------
+# model layers
+# ---------------------------------------------------------------------------
+
+
+@_rule("heads")
+def _own_heads(fn, q, k, v, **kw):
+    """Attention on DTensor q split over heads (dim 2) on some mesh dims:
+    each rank runs ``fn`` on its local query heads and the K/V heads they
+    read (K/V gathered on a mesh dim whose ranks do not divide KV; their
+    gradient there is partial, a sum over the ranks' heads); batch splits
+    ride along.  Other placements (and uneven splits) are DTensor's: DTensor
+    cannot cut GQA's (KV, G) groups when KV does not divide over the ranks,
+    and would otherwise gather every head onto every rank."""
+    mesh = q.device_mesh
+    H, KV = q.shape[2], k.shape[2]
+    if Shard(2) not in q.placements or any(
+            p not in (Replicate(), Shard(0), Shard(2)) for p in q.placements):
+        return fn(q, k, v, **kw)
+    kv_places, grads = [], []
+    for j, p in enumerate(q.placements):
+        gather = p == Shard(2) and KV % mesh.shape[j]
+        kv_places.append(Replicate() if gather else p)
+        grads.append(Partial() if gather else p)
+    try:
+        h_size, h_off = local_box(q.shape, mesh, q.placements)
+        k_size, k_off = local_box(k.shape, mesh, kv_places)
+    except ValueError:
+        return fn(q, k, v, **kw)
+    G = H // KV
+    if h_size[2] % G and G % h_size[2]:
+        return fn(q, k, v, **kw)
+    lo, hi = h_off[2] // G, -(-(h_off[2] + h_size[2]) // G)
+    kl, vl = (local(t.redistribute(mesh, kv_places), grads)
+              [:, :, lo - k_off[2]:hi - k_off[2]] for t in (k, v))
+    o = fn(local(q), kl, vl, **kw)
+    return wrap(o, mesh, q.placements, q.shape)
+
+
+@_rule("split_dim")
+def _whole_splits(fn, x, dim: int, sizes):
+    """Cutting ``dim`` into ``sizes``: a DTensor split on ``dim`` over more
+    ranks than divide the outer size ``sizes[0]`` is gathered on those mesh
+    dims first, since DTensor cannot cut a head (or a K/V group) in two —
+    GQA's 8 K/V heads on a 16-wide "model" axis, where the reference's
+    partitioner chooses its own layout."""
+    d = Shard(dim % x.dim())
+    dims = [j for j, p in enumerate(x.placements) if p == d]
+    if sizes[0] % math.prod(x.device_mesh.shape[j] for j in dims):
+        x = x.redistribute(x.device_mesh, [
+            Replicate() if j in dims else p
+            for j, p in enumerate(x.placements)])
+    return fn(x, dim, sizes)
+
+
+@_rule("kv_write")
+def _write_own_slots(fn, cache, new, positions, *, ring: bool = False):
+    """The decode step's cache write on a DTensor cache: each rank writes
+    the tokens whose slot and row fall in its own shard, into its local
+    tensor; a row whose slot lies on another rank rewrites a value it
+    holds.  ``new`` is brought to the cache's placements with the slot axis
+    replicated; nothing of the cache moves."""
+    mesh, places = cache.device_mesh, cache.placements
+    new_l = new.redistribute(
+        mesh, [Replicate() if p == Shard(1) else p for p in places]
+    ).to_local()[:, 0]
+    if isinstance(positions, DTensor):
+        positions = positions.full_tensor()
+    slots = positions.long()
+    if ring:
+        slots = slots % cache.shape[1]
+    shape, off = local_box(cache.shape, mesh, places)
+    rows = slots[off[0]:off[0] + shape[0]] - off[1]
+    inside = (rows >= 0) & (rows < shape[1])
+    lc = cache.to_local()
+    idx = torch.arange(shape[0], device=lc.device)
+    at = torch.clamp(rows, 0, shape[1] - 1)
+    lc[idx, at] = torch.where(inside[:, None, None], new_l, lc[idx, at])
+    return cache
+
+
+@_rule("embed_grad")
+def _embed_grad_sharded(fn, ct, tokens, V: int):
+    """The embedding's backward on a DTensor cotangent (B, S, d): each rank
+    sums its own rows into a (V, d-shard) table; a mesh dim that splits the
+    rows leaves the sums partial, one that splits d shards the table's
+    d."""
+    mesh = ct.device_mesh
+    rows = [p if p in (Shard(0), Shard(1)) else Replicate()
+            for p in ct.placements]
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    g = fn(ct.to_local(), tokens.redistribute(mesh, rows).to_local(), V)
+    places = [Partial() if p in (Shard(0), Shard(1))
+              else p if p.is_partial()
+              else Shard(1) if p == Shard(2) else Replicate()
+              for p in ct.placements]
+    return wrap(g, mesh, places, (V, ct.shape[-1]))
+
+
+@_rule("moe")
+def _moe_sharded(fn, p, x, **kw):
+    """The MoE layer on DTensors: each rank's tokens (the batch split over
+    the data axes) through its d_ff slice of every expert.  Routing and
+    dispatch are local to a group of tokens; the expert outputs are partial
+    sums over the ranks that split d_ff.  The aux loss is a mean over groups
+    of tokens: each rank's is the mean over its own, and the ranks that
+    split d_ff compute the same one, so it goes back as a partial sum of
+    aux / n over the n ranks of both.  Its gradient then comes to each rank
+    whole, and is a share that the ranks' partial gradients sum to once
+    (DTensor hands a partial's gradient back replicated, "avg" included,
+    so a partial average would count it n times)."""
+    mesh = x.device_mesh
+    batch = [j for j, q in enumerate(x.placements) if q == Shard(0)]
+    x = x.redistribute(mesh, [Shard(0) if j in batch else Replicate()
+                              for j in range(mesh.ndim)])
+    tp = [j for j, q in enumerate(p["w_up"].placements)
+          if q == Shard(2) and j not in batch]
+    n = math.prod(mesh.shape[j] for j in batch + tp)
+
+    def place(dim):        # a d_ff split on the tp dims, else replicated
+        return [Shard(dim) if j in tp else Replicate()
+                for j in range(mesh.ndim)]
+
+    def grads(dim):        # summed over the batch's ranks
+        return [Shard(dim) if j in tp else Partial() if j in batch
+                else Replicate() for j in range(mesh.ndim)]
+    lp = {"router": local(
+        p["router"].redistribute(mesh, [Replicate()] * mesh.ndim),
+        [Partial() if j in batch or j in tp else Replicate()
+         for j in range(mesh.ndim)])}
+    for name, dim in (("w_gate", 2), ("w_up", 2), ("w_down", 1)):
+        if name in p:
+            lp[name] = local(p[name].redistribute(mesh, place(dim)),
+                             grads(dim))
+    partial = [Partial() if j in tp else q for j, q in enumerate(x.placements)]
+    out, aux = fn(lp, local(x, partial), **kw)
+    return (wrap(out, mesh, partial, x.shape),
+            wrap(aux / n, mesh, [Partial() if j in batch or j in tp
+                                 else Replicate() for j in range(mesh.ndim)]))
+
+
+# ---------------------------------------------------------------------------
+# kernels
+# ---------------------------------------------------------------------------
+
+
+@_rule("kernel")
+def _kernel(fn, *operands, **kw):
+    """An attention kernel's wrapper on DTensor operands: the kernel on
+    local shards on the card (``kernel_on_shards``); on the CPU the plain
+    attention on the DTensors."""
+    if not operands[0].is_cuda:
+        return fn(*operands, **kw)
+    return kernel_on_shards(fn, *operands, **kw)
+
+
+def kernel_on_shards(fn, *operands, **kw):
+    """``fn`` on each rank's local shards of DTensor ``operands``, its
+    output wrapped back — only where that is exact: every mesh dim of size
+    1, or replicated on every operand, or splitting every operand alike on
+    the batch (dim 0), or on the heads (dim 2 of q, k and v; the K/V heads
+    split alike).  Any other placement raises with the placements named —
+    the decode cache's sequence-slot axis sharded over "model" among them,
+    whose softmax would need a combine across ranks.  Nothing is gathered
+    to run a kernel."""
+    q = operands[0]
+    name = fn.__name__
+    mesh = q.device_mesh
+    if any(not isinstance(t, DTensor) or t.device_mesh != mesh
+           for t in operands):
+        raise ValueError(f"{name}: every operand must be a DTensor on one "
+                         f"mesh")
+    # per operand: role -> tensor dim (a role it lacks: must be replicated)
+    roles = [{"batch": 0, "heads": 2} if t.dim() == 4 else {"batch": 0}
+             for t in operands]
+    split = []                       # per mesh dim: the role split, or None
+    for j, n in enumerate(mesh.shape):
+        ps = [t.placements[j] for t in operands]
+        if n == 1 or all(isinstance(p, Replicate) for p in ps):
+            split.append(None)
+            continue
+        role = next((r for r in ("batch", "heads") if all(
+            p == (Shard(rs[r]) if r in rs else Replicate())
+            for p, rs in zip(ps, roles)) and any(r in rs for rs in roles)),
+            None)
+        if role is None:
+            raise ValueError(
+                f"{name}: the kernel cannot run on these placements without "
+                f"a combine across ranks: mesh dim {j} "
+                f"({mesh.mesh_dim_names[j] if mesh.mesh_dim_names else j}, "
+                f"size {n}) has {[repr(p) for p in ps]} on "
+                f"{[tuple(t.shape) for t in operands]}")
+        for t, rs in zip(operands, roles):
+            if role in rs and t.shape[rs[role]] % n:
+                raise ValueError(f"{name}: {role} dim of {tuple(t.shape)} "
+                                 f"does not split evenly over {n} ranks")
+        split.append(role)
+    o = fn(*(t.to_local() for t in operands), **kw)
+    out_dim = roles[0]
+    shape = list(o.shape)
+    for r, n in zip(split, mesh.shape):
+        if r is not None:
+            shape[out_dim[r]] *= n
+    return wrap(o, mesh, [Replicate() if r is None else Shard(out_dim[r])
+                          for r in split], shape)
+
+
+@_rule("z_update")
+def _z_update_sharded(fn, omega_bar, z_old, thr):
+    """The z-update on DTensors: elementwise on each rank's shard (z_old
+    brought to omega_bar's placements), through the kernel or the plain
+    version as the shard's device says; the two sums are partial over the
+    mesh dims that split the tensor and are all-reduced there, so every
+    rank holds the whole tensor's."""
+    mesh = omega_bar.device_mesh
+    places = [Replicate() if p.is_partial() else p
+              for p in omega_bar.placements]
+    omega_bar = omega_bar.redistribute(mesh, places)
+    z_old = z_old.redistribute(mesh, places)
+    if isinstance(thr, DTensor):
+        thr = thr.to_local()
+    zn, ssq, nnz = fn(omega_bar.to_local(), z_old.to_local(), thr)
+    split = [Partial() if isinstance(p, Shard) else Replicate()
+             for p in places]
+    whole = [Replicate()] * mesh.ndim
+    return (wrap(zn, mesh, places, omega_bar.shape),
+            *(wrap(t, mesh, split).redistribute(mesh, whole)
+              for t in (ssq, nnz)))
+
+
+# ---------------------------------------------------------------------------
+# optimizer
+# ---------------------------------------------------------------------------
+
+
+@_rule("flat_chunks")
+def _dtensor_chunks(fn, *tensors):
+    """DTensors of one mesh, shape and placement: ``fn``'s chunks of each
+    rank's shard, as 1-d DTensors split (``Shard(0)``) on the mesh dims that
+    split the tensors — so a 1x1 mesh repeats the unsharded chunks and
+    their sums bit for bit.  DTensors of differing placements (ZeRO-1
+    moments beside tensor-parallel weights) come whole, in one chunk.  The
+    chunks are views: an update in place reaches the leaves."""
+    first = tensors[0]
+    if not all(isinstance(t, DTensor) and t.device_mesh == first.device_mesh
+               and t.placements == first.placements
+               and t.shape == first.shape for t in tensors):
+        yield tensors
+        return
+    mesh = first.device_mesh
+    places = [Shard(0) if isinstance(p, Shard) else p
+              for p in first.placements]
+    n_split = math.prod(mesh.shape[j] for j, p in enumerate(first.placements)
+                        if isinstance(p, Shard))
+    for chunk in fn(*(t.to_local() for t in tensors)):
+        yield tuple(wrap(c, mesh, places, (c.numel() * n_split,))
+                    for c in chunk)

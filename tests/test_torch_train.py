@@ -659,3 +659,37 @@ def test_training_slice_loads_without_jax():
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
                    env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+
+
+@pytest.mark.parametrize("family_arch", ["granite_8b", "musicgen_large"])
+def test_only_the_audio_embedding_may_go_unread(family_arch):
+    """``value_and_grads`` gives zeros (as ``jax.grad`` does) only for the
+    leaves ``unread_leaves`` names — the audio family's input embedding
+    table, which its loss does not read — and raises for any other leaf the
+    loss does not reach."""
+    cfg = t_configs.reduced(t_configs.get_config(family_arch))
+    params = t_model.init_params(cfg, generator=torch.Generator()
+                                 .manual_seed(0), device="cpu")
+    ps, build = t_trainer.flatten(params)
+    unread = t_trainer.unread_leaves(cfg, params)
+    assert len(unread) == (cfg.family == "audio")
+    loss_fn = lambda p, b: t_model.loss_fn(p, cfg, b)[0]
+    rng = np.random.RandomState(0)
+    if cfg.family == "audio":
+        batch = {"embeds": torch.as_tensor(rng.randn(
+            2, 8, cfg.d_model).astype(np.float32)).to(t_layers.dtype_of(cfg))}
+    else:
+        batch = {"tokens": torch.as_tensor(
+            rng.randint(0, cfg.vocab_size, (2, 8)).astype(np.int32))}
+    batch["labels"] = torch.as_tensor(
+        rng.randint(0, cfg.vocab_size, (2, 8)).astype(np.int32))
+    _, grads = t_trainer.value_and_grads(loss_fn, ps, build, batch, unread)
+    for i in unread:
+        assert not torch.any(grads[i])
+    # a leaf the loss does not read, not named: raises
+    cut = lambda p, b: loss_fn(dict(p, final_norm=p["final_norm"].detach()),
+                               b)
+    i_norm = next(i for i, leaf in enumerate(t_trainer.leaves(params))
+                  if leaf is params["final_norm"])
+    with pytest.raises(RuntimeError, match=rf"leaves \[{i_norm}\]"):
+        t_trainer.value_and_grads(cut, ps, build, batch, unread)
