@@ -45,11 +45,18 @@ def _lib():
 
 def plan(D: int, n_sms: int) -> int:
     """Blocks for a length-D update: one per 4 * THREADS elements (a
-    float4 per thread), at most one per SM."""
+    float4 per thread), at most one per SM.  The kernel indexes elements
+    with int32, so a thread's last index plus the grid's stride must stay
+    below 2^31 (granite_moe's 3.46e8-element expert leaves are far
+    inside)."""
     if D < 1 or n_sms < 1:
         raise ValueError(f"plan needs D >= 1 and n_sms >= 1, got {D}, "
                          f"{n_sms}")
-    return min(-(-D // (4 * THREADS)), n_sms)
+    blocks = min(-(-D // (4 * THREADS)), n_sms)
+    if D > 2 ** 31 - blocks * THREADS:
+        raise ValueError(f"plan: D = {D} overflows the kernel's int32 "
+                         f"element index")
+    return blocks
 
 
 def _arrivals(dev) -> torch.Tensor:

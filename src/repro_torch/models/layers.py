@@ -164,6 +164,13 @@ def split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     return split_dim(x, -1, (n, hd))
 
 
+@on_shards("merge_dims")
+def merge_dims(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x`` with dims ``dim`` and ``dim + 1`` as one: the inverse of
+    ``split_dim`` ((B, S, H, hd) -> (B, S, H * hd))."""
+    return x.flatten(dim, dim + 1)
+
+
 # ---------------------------------------------------------------------------
 # Embedding / head
 # ---------------------------------------------------------------------------

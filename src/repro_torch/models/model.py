@@ -257,7 +257,6 @@ def _layers(blocks: Params) -> List[Params]:
 def _attn_seq(p, cfg: ModelConfig, x, positions, *, window, rope, attend):
     """Pre-norm GQA attention over a full sequence, through ``attend``.
     Returns (x, (k, v))."""
-    B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     q = layers.split_heads(layers.dense(p["attn"]["wq"], h), H, hd)
@@ -267,7 +266,7 @@ def _attn_seq(p, cfg: ModelConfig, x, positions, *, window, rope, attend):
     k = layers.apply_rope(k, positions, cfg.rope_theta, tables=rope)
     q = constrain(q, "bshd")
     o = attend(q, k, v, causal=True, window=window)
-    x = constrain(x + layers.dense(p["attn"]["wo"], o.reshape(B, S, H * hd)),
+    x = constrain(x + layers.dense(p["attn"]["wo"], layers.merge_dims(o, 2)),
                   "btd")
     return x, (k, v)
 
@@ -295,12 +294,11 @@ def _block_seq(p, cfg: ModelConfig, x, positions, *, rope, attend):
 
 def _cross_block_seq(p, cfg: ModelConfig, x, img_kv, *, cross):
     """VLM gated cross-attention block. img_kv = (k_img, v_img)."""
-    B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.hd
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     q = layers.split_heads(layers.dense(p["xattn"]["wq"], h), H, hd)
     o = cross(q, *img_kv)
-    o = layers.dense(p["xattn"]["wo"], o.reshape(B, S, H * hd))
+    o = layers.dense(p["xattn"]["wo"], layers.merge_dims(o, 2))
     x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * o
     y = layers.mlp(p["mlp"], layers.rms_norm(x, p["ln2"], cfg.norm_eps))
     return x + torch.tanh(p["gate_mlp"]).to(x.dtype) * y

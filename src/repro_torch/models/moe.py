@@ -25,6 +25,14 @@ order of the top-k, with no atomics, so a repeat is bit for bit.  The
 reference's two ``moe_slots`` hints sit on the (E, groups * cap, d) slot
 buffers that take the place of its ``xe`` and ``ye``.
 
+Both gathers differentiate by gathers too (``gather_rows``), never by an
+index accumulation: a kept slot holds one assignment and a token at most
+k, so dispatch's gradient for token t is the sum of its k slots'
+cotangents, in the order of the top-k (a dropped one reads zero), and
+combine's for slot s is its one assignment's cotangent (an empty slot
+gets zero).  A backward pass therefore repeats bit for bit on the card
+too, where ``rows[index]``'s own backward adds atomically.
+
 On DTensors (a sharded step) the layer runs on each rank's own tokens
 with its d_ff slice of every expert (the rule "moe" of
 ``parallel/shards.py``); the slot buffers are then local tensors, which
@@ -110,6 +118,37 @@ def _experts(p, xe: torch.Tensor) -> torch.Tensor:
     return torch.bmm(h, p["w_down"])
 
 
+def _pad(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (n, d) with a zero row n appended."""
+    return torch.cat([t, t.new_zeros((1, t.shape[-1]))])
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, idx, inv):
+        ctx.save_for_backward(inv)
+        return _pad(table)[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        inv, = ctx.saved_tensors
+        g = _pad(g.reshape(-1, g.shape[-1]))
+        acc = g[inv[:, 0]].float()
+        for m in range(1, inv.shape[1]):
+            acc = acc + g[inv[:, m]].float()
+        return acc.to(g.dtype), None, None
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor,
+                inv: torch.Tensor) -> torch.Tensor:
+    """``table`` (n, d)'s rows at ``idx`` (any shape; n reads a zero row),
+    whose gradient is a fixed-order gather: row r of ``table`` gets the
+    cotangent rows at ``inv[r, 0]``, ``inv[r, 1]``, ... summed in that
+    order in float32, where ``inv`` (n, m) lists the positions of the
+    flattened ``idx`` that read row r (``idx.numel()``: none)."""
+    return _GatherRows.apply(table, idx, inv)
+
+
 @on_shards("moe")
 def moe_ff(p, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25,
            group_size: Optional[int] = None
@@ -128,22 +167,24 @@ def moe_ff(p, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25,
     flat = (r.gate_idx * (G * cap)
             + torch.arange(G, device=x.device)[:, None, None] * cap
             + r.slot)
-    flat = torch.where(r.kept, flat, n_slots)                    # (G,gs,k)
-    tok = torch.arange(T, device=x.device).reshape(G, gs, 1).expand_as(flat)
-    # each kept slot has one token; the dropped all land on the spare entry
-    src = torch.full((n_slots + 1,), T, dtype=torch.long, device=x.device)
-    src.scatter_(0, flat.reshape(-1), tok.reshape(-1))
-    rows = torch.cat([x.reshape(T, d), x.new_zeros((1, d))])
-    xe = constrain(rows[src[:n_slots]].reshape(E, G * cap, d), "moe_slots")
+    flat = torch.where(r.kept, flat, n_slots).reshape(T, top_k)
+    # the assignment t * k + j each kept slot holds (an empty one T * k);
+    # the dropped all land on the spare entry n_slots
+    asg = torch.full((n_slots + 1,), T * top_k, dtype=torch.long,
+                     device=x.device)
+    asg.scatter_(0, flat.reshape(-1),
+                 torch.arange(T * top_k, device=x.device))
+    asg = asg[:n_slots, None]
+    xe = gather_rows(x.reshape(T, d), asg[:, 0] // top_k, flat)
+    xe = constrain(xe.reshape(E, G * cap, d), "moe_slots")
     ye = constrain(_experts(p, xe), "moe_slots")
-    ye = torch.cat([ye.reshape(n_slots, d), ye.new_zeros((1, d))])
+    yk = gather_rows(ye.reshape(n_slots, d), flat, asg)           # (T,k,d)
 
     # the reference rounds the combine weights to x's dtype
     w = torch.where(r.kept, r.gate_vals, 0.0).to(x.dtype).reshape(T, top_k)
-    flat = flat.reshape(T, top_k)
     out = torch.zeros((T, d), dtype=torch.float32, device=x.device)
     for j in range(top_k):
-        out = out + w[:, j, None].float() * ye[flat[:, j]].float()
+        out = out + w[:, j, None].float() * yk[:, j].float()
 
     frac = r.counts.float() / (gs * top_k)                       # (G, E)
     aux = E * torch.sum(frac * r.probs.mean(dim=1), dim=-1)

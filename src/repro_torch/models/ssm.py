@@ -8,7 +8,9 @@ chunks by a Python loop (the reference's ``lax.scan``).  Everything is
 computed in float32, as in the reference, and the outputs are cast back
 to the inputs' dtype.  ``*_decode_step`` advances the state by one token;
 ``*_reference`` is the plain per-token scan the tests hold both against.
-No kernel backs these functions, here or in the reference.
+No kernel backs these functions, here or in the reference.  On DTensors
+(a sharded step) each rank scans its own batch rows and heads over the
+whole sequence (the rule "scan" of ``parallel/shards.py``).
 
 Mamba2 SSD (per head h, scalar decay):
     a_t = exp(dt_t * A_h)            # A_h < 0, dt_t = softplus(...)
@@ -24,6 +26,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from repro_torch.parallel.shards import on_shards
 
 LOG_EPS = -30.0  # floor for log-decays; exp(-30) ~ 1e-13
 
@@ -49,6 +53,7 @@ def _exp(t: torch.Tensor) -> torch.Tensor:
 # Mamba2 SSD
 # ===========================================================================
 
+@on_shards("scan")
 def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int = 128,
                 initial_state: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -116,6 +121,7 @@ def ssd_reference(x, dt, A, Bm, Cm, *, initial_state=None):
 # RWKV6 WKV (Finch): per-key-channel data-dependent decay
 # ===========================================================================
 
+@on_shards("scan")
 def wkv6_chunked(r, k, v, w, u, *, chunk: int = 64,
                  initial_state: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -15,10 +15,12 @@ distribution layer.
   rule         marks                        on DTensors
   heads        attention.block_attention,   each rank's own query heads
                attention.cross_attention    against the K/V heads they read
-  split_dim    layers.split_dim             a dim split over ranks that do
-                                            not divide its outer part is
+  split_dim    layers.split_dim,            a dim split over ranks that do
+  merge_dims   layers.merge_dims            not divide its outer part is
                                             gathered first (GQA's 8 K/V
-                                            heads on 16 ranks)
+                                            heads, granite_moe's 24 query
+                                            heads on 16 ranks), and so is
+                                            its cotangent
   kv_write     attention.update_cache       each rank writes the slots it
                                             holds; nothing of the cache moves
   embed_grad   layers._embed_grad           each rank's rows, partial sums
@@ -32,6 +34,9 @@ distribution layer.
                                             two sums all-reduced
   flat_chunks  optimizers.flat_chunks       each shard chunked as the
                                             unsharded leaf is
+  scan         ssm.ssd_chunked,             each rank's batch and heads
+               ssm.wkv6_chunked             over the whole sequence (a
+                                            split sequence gathered)
 
 Two conventions hold for every rule: a local result wrapped back into a
 DTensor is contiguous, and so is a gradient handed back through
@@ -136,20 +141,52 @@ def _own_heads(fn, q, k, v, **kw):
     return wrap(o, mesh, q.placements, q.shape)
 
 
+def _whole(t: DTensor, d: int, n: int) -> DTensor:
+    """``t`` gathered on the mesh dims that split its dim ``d``, when their
+    ranks do not divide ``n``, the number of heads (or K/V groups) that dim
+    holds: DTensor cannot cut a head in two."""
+    dims = [j for j, p in enumerate(t.placements) if p == Shard(d)]
+    if n % math.prod(t.device_mesh.shape[j] for j in dims):
+        t = t.redistribute(t.device_mesh, [
+            Replicate() if j in dims else p
+            for j, p in enumerate(t.placements)])
+    return t
+
+
+class _WholeGrad(torch.autograd.Function):
+    """The identity; its cotangent comes ``_whole`` on dim ``d``."""
+    @staticmethod
+    def forward(ctx, x, d, n):
+        ctx.d, ctx.n = d, n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _whole(g, ctx.d, ctx.n), None, None
+
+
 @_rule("split_dim")
 def _whole_splits(fn, x, dim: int, sizes):
-    """Cutting ``dim`` into ``sizes``: a DTensor split on ``dim`` over more
-    ranks than divide the outer size ``sizes[0]`` is gathered on those mesh
-    dims first, since DTensor cannot cut a head (or a K/V group) in two —
-    GQA's 8 K/V heads on a 16-wide "model" axis, where the reference's
-    partitioner chooses its own layout."""
-    d = Shard(dim % x.dim())
-    dims = [j for j, p in enumerate(x.placements) if p == d]
-    if sizes[0] % math.prod(x.device_mesh.shape[j] for j in dims):
-        x = x.redistribute(x.device_mesh, [
-            Replicate() if j in dims else p
-            for j, p in enumerate(x.placements)])
-    return fn(x, dim, sizes)
+    """Cutting ``dim`` into ``sizes`` on a DTensor: both ``x`` and the
+    output's cotangent come whole on the mesh dims whose ranks do not
+    divide the outer size ``sizes[0]`` (GQA's 8 K/V heads on a 16-wide
+    "model" axis, where the reference's partitioner chooses its own
+    layout); the unflatten and its backward then split no head."""
+    d = dim % x.dim()
+    out = fn(_whole(x, d, sizes[0]), dim, sizes)
+    return _WholeGrad.apply(out, d, sizes[0])
+
+
+@_rule("merge_dims")
+def _whole_merges(fn, x, dim: int):
+    """Merging ``dim`` with the next on a DTensor, the inverse of
+    ``split_dim``: ``x`` and the output's cotangent come whole on the mesh
+    dims whose ranks do not divide ``x.shape[dim]`` (granite_moe's 24 query
+    heads, whose merged cotangent a row-parallel output projection hands
+    back split 16 ways)."""
+    d = dim % x.dim()
+    n = x.shape[d]
+    return _WholeGrad.apply(fn(_whole(x, d, n), dim), d, n)
 
 
 @_rule("kv_write")
@@ -238,6 +275,59 @@ def _moe_sharded(fn, p, x, **kw):
     return (wrap(out, mesh, partial, x.shape),
             wrap(aux / n, mesh, [Partial() if j in batch or j in tp
                                  else Replicate() for j in range(mesh.ndim)]))
+
+
+# each chunked scan's positional operands: the dim of its heads (None: it
+# has none); an operand of three or more dims leads with the batch
+SCAN_HEADS = {"ssd_chunked": (2, 2, 0, None, None),      # x, dt, A, B, C
+              "wkv6_chunked": (2, 2, 2, 2, 0)}           # r, k, v, w, u
+
+
+@_rule("scan")
+def _scan_local(fn, *args, initial_state=None, **kw):
+    """A chunked scan (``ssm.ssd_chunked``, ``ssm.wkv6_chunked``) on
+    DTensors.  The recurrence runs along the sequence, so each rank runs
+    ``fn`` on its own batch rows and heads over the whole sequence: on each
+    mesh dim the first operand's split is kept where it is the batch (dim
+    0) or the heads and divides them evenly, every operand is brought to
+    it, and any other split (the sequence, a head's channels) or partial
+    sum is gathered.  The output (B, S, heads, ·) and the final state (B,
+    heads, ·, ·) go back split alike, replicated along what was gathered.
+    Unsplit operands (plain tensors) count as replicated."""
+    heads = SCAN_HEADS[fn.__name__]
+    x = args[0]
+    mesh = x.device_mesh
+    ops_dims = [(t, 0 if t.dim() > 2 else None, h)
+                for t, h in zip(args, heads)]
+    if initial_state is not None:
+        ops_dims.append((initial_state, 0, 1))
+    roles = []
+    for j, p in enumerate(x.placements):
+        role = ("batch" if p == Shard(0) else
+                "heads" if p == Shard(heads[0]) else None)
+        n = math.prod(mesh.shape[i] for i, q in enumerate(x.placements)
+                      if q == p)
+        even = role is not None and all(
+            t.shape[d] % n == 0 for t, b, h in ops_dims
+            for d in [b if role == "batch" else h] if d is not None)
+        roles.append(role if even else None)
+
+    def places(b, h):
+        return [Shard(b) if r == "batch" and b is not None else
+                Shard(h) if r == "heads" and h is not None else Replicate()
+                for r in roles]
+
+    def lcl(t, b, h):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return local(t.redistribute(mesh, places(b, h)))
+    loc = [lcl(*od) for od in ops_dims]
+    state = loc.pop() if initial_state is not None else None
+    y, fin = fn(*loc, initial_state=state, **kw)
+    B, S, H = x.shape[:3]
+    return (wrap(y, mesh, places(0, 2), (B, S, H, y.shape[-1])),
+            wrap(fin, mesh, places(0, 1), (B, H) + tuple(fin.shape[2:])))
 
 
 # ---------------------------------------------------------------------------

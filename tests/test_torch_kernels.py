@@ -201,14 +201,22 @@ def test_margin_plan(W, N, D, sms, want):
 
 
 @pytest.mark.parametrize("D,want", [(1, 1), (70, 1), (10_000, 10),
-                                    (1_000_003, 132)])
+                                    (1_000_003, 132), (346_030_080, 132),
+                                    (2 ** 31 - 132 * 256, 132)])
 def test_z_update_plan(D, want):
     """One block per 4 * 256 elements, at most one per SM; the block
-    partials fit the scratch the wrapper allocates."""
+    partials fit the scratch the wrapper allocates; granite_moe's stacked
+    expert leaf at 11 layers, (11, 40, 1536, 512), and the largest length
+    whose int32 indices the grid's stride cannot overflow."""
     blocks = t_st.plan(D, 132)
     assert blocks == want
     assert 1 <= blocks <= 132
     assert blocks == 1 or (blocks - 1) * 4 * t_st.THREADS < D
+
+
+def test_z_update_plan_refuses_what_int32_cannot_index():
+    with pytest.raises(ValueError, match="int32"):
+        t_st.plan(2 ** 31 - 132 * 256 + 1, 132)
 
 
 def _ptxas_entry(mangled, spill_bytes):

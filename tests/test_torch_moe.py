@@ -44,10 +44,11 @@ def _x(B, S, seed=1):
 def _reference_routing(p, x, top_k, cf, group_size):
     """The experts each token chose and which assignments dropped, by the
     reference's expressions (``repro/models/moe.py`` ``_moe_group``)."""
-    B, S, _ = x.shape
+    B, S, d = x.shape
+    E = p["router"].shape[-1]
     gs = t_moe.group_len(S, group_size)
     cap = min(int(max(top_k * gs * cf / E, 1)), gs)
-    xg = jnp.asarray(x).reshape(-1, gs, D)
+    xg = jnp.asarray(x).reshape(-1, gs, d)
     probs = jax.nn.softmax(xg @ jnp.asarray(p["router"]), axis=-1)
     _, gate_idx = jax.lax.top_k(probs, top_k)
     onehot = jax.nn.one_hot(gate_idx, E, dtype=jnp.int32)
@@ -149,3 +150,92 @@ def test_moe_ff_in_bf16_matches_jax():
                                np.asarray(want, np.float32), rtol=2e-2,
                                atol=2e-2)
     np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5)
+
+
+def _index_form(table, idx, inv):
+    """The dispatch and combine as plain index gathers: autograd's own
+    backward, an index accumulation."""
+    return torch.cat([table, table.new_zeros((1, table.shape[-1]))])[idx]
+
+
+@pytest.mark.parametrize("kind,top_k,cf,gsize,B,S", [CASES[0], CASES[2]])
+def test_moe_ff_backward_is_a_fixed_order_gather(kind, top_k, cf, gsize, B,
+                                                 S, monkeypatch):
+    """Capacity below demand (drops) and every token routed to k > 1
+    experts: the gradients of the gather backward match the reference's
+    at ``GRAD_RTOL`` of each leaf's largest entry, run under deterministic
+    algorithms, and match the index-gather form's autograd within 1e-6 of
+    each leaf's largest entry (float32, the k terms of a token summed in
+    another order); the forward is that form's bit for bit."""
+    p, x = _params(kind), _x(B, S)
+    ct = np.random.RandomState(2).randn(B, S, D).astype(np.float32)
+
+    def jf(p, x):
+        out, aux = j_moe.moe_ff(p, x, top_k=top_k, capacity_factor=cf,
+                                group_size=gsize)
+        return jnp.sum(out * ct) + aux
+    jg = jax.grad(jf, argnums=(0, 1))({k: jnp.asarray(v)
+                                       for k, v in p.items()},
+                                      jnp.asarray(x))
+
+    def grads():
+        tp = {k: torch.tensor(v, requires_grad=True) for k, v in p.items()}
+        tx = torch.tensor(x, requires_grad=True)
+        out, aux = t_moe.moe_ff(tp, tx, top_k=top_k, capacity_factor=cf,
+                                group_size=gsize)
+        (torch.sum(out * torch.as_tensor(ct)) + aux).backward()
+        return out.detach(), {**{k: t.grad for k, t in tp.items()},
+                              "x": tx.grad}
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        out, got = grads()
+    finally:
+        torch.use_deterministic_algorithms(was)
+    _, dropped, _ = _reference_routing(p, x, top_k, cf, gsize)
+    assert dropped.any() and top_k > 1
+    for name, g in got.items():
+        j = np.asarray(jg[1] if name == "x" else jg[0][name])
+        np.testing.assert_allclose(g.numpy(), j, rtol=0,
+                                   atol=GRAD_RTOL * np.abs(j).max(),
+                                   err_msg=name)
+    monkeypatch.setattr(t_moe, "gather_rows", _index_form)
+    out_i, want = grads()
+    assert torch.equal(out, out_i)
+    for name, g in got.items():
+        w = want[name].numpy()
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=1e-6 * np.abs(w).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("shared", [0.0, 0.9])
+def test_full_width_routing_drops_what_the_references_drops(shared):
+    """granite_moe_3b_a800m's router at full width (d_model 1536, 40
+    experts, top 8, capacity factor 1.25, groups of 512), both packages on
+    one seeded router (normal, std d^-0.5, rounded to bf16 as the model
+    holds it) and one seeded batch of 2 x 1024 hidden states: independent
+    tokens, and tokens sharing a direction with weight ``shared`` (the
+    residual stream of a randomly initialised deep model is such a batch).
+    The experts chosen and the kept masks are equal, so the drop share is
+    the reference's; it stays small on independent tokens and climbs on
+    correlated ones."""
+    from repro_torch import configs as t_configs
+    cfg = t_configs.get_config("granite_moe_3b_a800m")
+    d, E, k = cfg.d_model, cfg.n_experts, cfg.top_k
+    rng = np.random.RandomState(5)
+    bf16 = lambda a: torch.as_tensor(a.astype(np.float32)).to(
+        torch.bfloat16).float().numpy()
+    router = bf16(rng.randn(d, E) * d ** -0.5)
+    x = rng.randn(2, 1024, d)
+    x = bf16(shared * rng.randn(d) + np.sqrt(1 - shared ** 2) * x)
+    gate_idx, dropped, cap = _reference_routing(
+        {"router": router}, x, k, cfg.capacity_factor, cfg.moe_group_size)
+    gs = t_moe.group_len(1024, cfg.moe_group_size)
+    assert (gs, cap) == (512, 128)
+    r = t_moe.route(torch.as_tensor(router),
+                    torch.as_tensor(x).reshape(-1, gs, d), k, cap)
+    np.testing.assert_array_equal(r.gate_idx.numpy(), gate_idx)
+    np.testing.assert_array_equal((~r.kept).numpy(), dropped)
+    share = float((~r.kept).float().mean())
+    assert share == dropped.mean()
+    assert (share < 0.1) if shared == 0.0 else (share > 0.3)

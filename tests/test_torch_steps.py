@@ -44,7 +44,7 @@ from repro_torch.launch import steps as t_steps               # noqa: E402
 from repro_torch.models import model as t_model               # noqa: E402
 from repro_torch.models.convert import (                      # noqa: E402
     params_from_jax, sgd_state_from_jax, state_from_jax)
-from repro_torch.tree import leaves, tree_map                 # noqa: E402
+from repro_torch.tree import flatten, leaves, tree_map       # noqa: E402
 from test_torch_data import partitionable                     # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -54,7 +54,7 @@ B, S, P = 2, 16, 12                 # batch, sequence (cache) length, prompt
 ARCHS = ["granite_8b", "granite_moe_3b_a800m"]
 MODES = ["sgd", "admm", "prefill", "decode"]
 KIND = {"sgd": "train", "admm": "train", "prefill": "prefill",
-        "decode": "decode"}
+        "decode": "decode", "grads": "train"}
 
 
 @pytest.fixture(scope="module")
@@ -287,45 +287,73 @@ def test_host_mesh_needs_the_card_it_is_asked_for():
 
 MESHES = [(2, 2), (1, 4)]
 MB = 4                              # batch: splits over data 2 and W = 2
+# (mesh, arch, overrides of ``reduced``, mode, batch, sequence): where the
+# sharded step once raised.  granite_moe with 6 query heads of 64 on a
+# 4-wide model axis, as its 24 on 16 (the row-parallel output projection
+# hands the merged heads' cotangent back split 6 ways over 4), through the
+# sgd step's loss and gradients ("grads"); zamba2 and rwkv6 prefills whose
+# batch does not split over the model axis, so DTensor splits the sequence
+# there (all of the SSD's operands; RWKV6's decay)
+REPAIRS = [((1, 4), "granite_moe_3b_a800m",
+            dict(n_heads=6, head_dim=64, d_model=384), "grads", MB, S),
+           ((1, 4), "zamba2_1_2b", {}, "prefill", 2, 128),
+           ((2, 2), "rwkv6_1_6b", {}, "prefill", 2, S)]
 
 
-def _state(cfg, mode, n_workers):
-    """A fresh (args, plain step) of ``mode`` on reduced ``cfg``: weights
-    from seed 0, numpy inputs from seeds 1 and 3."""
+def _state(cfg, mode, n_workers, B=MB, seq_len=S):
+    """A fresh (args, plain step) of ``mode`` on reduced ``cfg`` at batch
+    ``B`` and sequence ``seq_len``: weights from seed 0, numpy inputs from
+    seeds 1 and 3."""
     from repro_torch.optim import optimizers as t_opt
     tok = lambda a: torch.as_tensor(a.astype(np.int32))
     gen = lambda: torch.Generator().manual_seed(0)
     rng = np.random.RandomState(1)
-    seq = rng.randint(0, cfg.vocab_size, (MB, S))
-    if mode == "sgd":
+    seq = rng.randint(0, cfg.vocab_size, (B, seq_len))
+    if mode in ("sgd", "grads"):
         p = t_model.init_params(cfg, generator=gen(), device="cpu")
-        lab = rng.randint(0, cfg.vocab_size, (MB, S))
+        lab = rng.randint(0, cfg.vocab_size, (B, seq_len))
         return ((p, t_opt.adamw_init(p), {"tokens": tok(seq),
                                           "labels": tok(lab)}),
-                t_trainer.make_sgd_step(cfg))
+                t_trainer.make_sgd_step(cfg) if mode == "sgd"
+                else _loss_and_grads(cfg))
     if mode == "admm":
         ccfg = t_trainer.ConsensusConfig(n_workers=n_workers, local_steps=2)
         st = t_trainer.init_state(cfg, ccfg, generator=gen(), device="cpu")
         r3 = np.random.RandomState(3)
         wb = {k: tok(r3.randint(0, cfg.vocab_size,
-                                (n_workers, MB // n_workers, S)))
+                                (n_workers, B // n_workers, seq_len)))
               for k in ("tokens", "labels")}
         return (st, wb), t_trainer.make_round_step(cfg, ccfg)
     p = t_model.init_params(cfg, generator=gen(), device="cpu")
-    cache = t_model.init_cache(cfg, MB, S, device="cpu")
+    cache = t_model.init_cache(cfg, B, seq_len, device="cpu")
     if mode == "prefill":
         return ((p, {"tokens": tok(seq)}, cache),
                 lambda p, b, c: t_model.prefill(p, cfg, b, c, last_only=True))
     t_model.prefill(p, cfg, {"tokens": tok(seq[:, :P])}, cache)
     return ((p, {"tokens": tok(seq[:, P:P + 1]),
-                 "positions": torch.full((MB,), P, dtype=torch.int32)},
+                 "positions": torch.full((B,), P, dtype=torch.int32)},
              cache),
             lambda p, b, c: t_model.decode_step(p, cfg, b, c))
 
 
+def _loss_and_grads(cfg):
+    """The sgd step up to its AdamW update: (params, opt, batch) -> (loss,
+    gradients).  A repair of the backward is held here and not on the
+    updated parameters: AdamW's first step moves each parameter by about
+    lr times the sign of its gradient, so an entry within float32 noise of
+    zero (3e-8 against a leaf's largest 1.8e-2, measured on the CPU) lands
+    up to 2 lr apart between two summation orders."""
+    def fn(params, opt, batch):
+        ps, build = flatten(params)
+        return t_trainer.value_and_grads(
+            lambda p, b: t_model.loss_fn(p, cfg, b)[0], ps, build, batch)
+    return fn
+
+
 def _rank_main(rank, world, port, shape, out):
-    """One rank: every (arch, mode) step, sharded on a ``shape`` mesh, then
-    the unsharded port on the same state; rank 0 saves both, gathered."""
+    """One rank: every (arch, mode) step and the mesh's ``REPAIRS``, sharded
+    on a ``shape`` mesh, then the unsharded port on the same state; rank 0
+    saves both, gathered."""
     import pickle
     import traceback
 
@@ -334,26 +362,31 @@ def _rank_main(rank, world, port, shape, out):
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=world)
     mesh = t_mesh.make_host_mesh(*shape, device="cpu")
+    cases = [(arch, {}, mode, MB, S) for arch in ARCHS for mode in MODES]
+    cases += [c[1:] for c in REPAIRS if c[0] == shape]
     res = {}
-    for arch in ARCHS:
-        cfg = t_configs.reduced(t_configs.get_config(arch))
-        for mode in MODES:
-            try:
-                b = t_steps.build_step(cfg, t_configs.ShapeConfig(
-                    "s", S, MB, KIND[mode]), mesh, mode,
-                    consensus=dict(local_steps=2))
-                W = b.meta.get("n_workers", 1)
-                grad = torch.enable_grad() if KIND[mode] == "train" \
-                    else torch.no_grad()
-                with grad:
-                    args, _ = _state(cfg, mode, W)
-                    got = t_steps.lower_step(b, mesh, args).run()
-                    args, plain = _state(cfg, mode, W)
-                    want = plain(*args)
-                res[arch, mode] = (W, [_f64(t) for t in leaves(got)],
-                                   [_f64(t) for t in leaves(want)])
-            except Exception:
-                res[arch, mode] = traceback.format_exc()
+    for arch, kw, mode, batch, seq_len in cases:
+        cfg = t_configs.reduced(t_configs.get_config(arch), **kw)
+        try:
+            b = t_steps.build_step(cfg, t_configs.ShapeConfig(
+                "s", seq_len, batch, KIND[mode]), mesh,
+                "sgd" if mode == "grads" else mode,
+                consensus=dict(local_steps=2))
+            if mode == "grads":
+                b = b._replace(fn=_loss_and_grads(cfg), out_specs=None)
+            W = b.meta.get("n_workers", 1)
+            grad = torch.enable_grad() if KIND[mode] == "train" \
+                else torch.no_grad()
+            with grad:
+                args, _ = _state(cfg, mode, W, batch, seq_len)
+                got = t_steps.lower_step(b, mesh, args).run()
+                args, plain = _state(cfg, mode, W, batch, seq_len)
+                want = plain(*args)
+            res[arch, str(kw), mode] = (
+                W, [_f64(t) for t in leaves(got)],
+                [_f64(t) for t in leaves(want)])
+        except Exception:
+            res[arch, str(kw), mode] = traceback.format_exc()
     if rank == 0:
         with open(out, "wb") as f:
             pickle.dump(res, f)
@@ -362,8 +395,9 @@ def _rank_main(rank, world, port, shape, out):
 
 @pytest.fixture(scope="module")
 def multi_rank(tmp_path_factory):
-    """{mesh shape: {(arch, mode): (W, sharded leaves, unsharded leaves)
-    or a traceback}}, from four spawned processes per mesh."""
+    """{mesh shape: {(arch, str(overrides), mode): (W, sharded leaves,
+    unsharded leaves) or a traceback}}, from four spawned processes per
+    mesh."""
     import pickle
     import socket
 
@@ -393,7 +427,22 @@ def test_sharded_step_matches_unsharded_on_four_ranks(shape, arch, mode,
     against two K/V heads (gathered, their gradient partial), the MoE's
     d_ff over four, the decode cache's slots over four.  Nothing else of a
     multi-rank step is left for the chip's 1x1 mesh to show."""
-    res = multi_rank[shape][arch, mode]
+    _hold_ranks(multi_rank[shape][arch, "{}", mode], shape, mode)
+
+
+@pytest.mark.parametrize("shape,arch,kw,mode,batch,seq_len", REPAIRS,
+                         ids=[c[1] for c in REPAIRS])
+def test_sharded_step_splits_no_head_or_scan_on_four_ranks(
+        shape, arch, kw, mode, batch, seq_len, multi_rank):
+    """The cases of ``REPAIRS`` on a real four-rank group equal the
+    unsharded port on the same state, as the step's other modes do: the
+    merged heads' cotangent is gathered before it is cut into 6 heads again
+    (rule "merge_dims"), and each rank scans its own batch rows and heads
+    over the whole sequence (rule "scan")."""
+    _hold_ranks(multi_rank[shape][arch, str(kw), mode], shape, mode)
+
+
+def _hold_ranks(res, shape, mode):
     assert not isinstance(res, str), res
     W, got, want = res
     assert W == (shape[0] if mode == "admm" else 1)

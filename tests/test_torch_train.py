@@ -15,6 +15,13 @@ Tolerances, each with its reason:
     measured: at most 3.3e-6 on parameters of scale 0.1-1 after 3 rounds;
   * ``GRAD_RTOL`` 1e-5 of the largest entry, for one gradient: float32
     summation order only (measured 6e-7);
+  * the non-dense families' rounds (reduced granite_moe, zamba2, rwkv6,
+    musicgen) hold r_norm at 1e-6 relative against the float64 norm of
+    the reference's own state entering the round, not the reference's
+    metric: that metric sums ||x - z||^2 in float32 over leaves of up to
+    3.2e6 elements (reduced granite_moe keeps its 49 408-row padded
+    embedding and head) and lands 1.7e-5 from the float64 sum there,
+    where the port's lands 3.5e-8 from it (measured on the CPU);
   * 1e-6 relative for the optimizers and schedules on one step: the same
     float32 formulas, ``pow`` of the bias corrections and ``cos`` the
     only functions that may round apart;
@@ -60,6 +67,7 @@ from repro_torch.optim import optimizers as t_opt             # noqa: E402
 from repro_torch.optim import schedules as t_sched            # noqa: E402
 from repro_torch.tree import flatten, leaves                  # noqa: E402
 from test_torch_data import partitionable                     # noqa: E402
+from test_torch_families import nonzero                       # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -434,44 +442,89 @@ def test_loss_fn_reports_ce_and_aux_like_the_reference():
 # ---------------------------------------------------------------------------
 
 
-def _admm_run(prox, monkeypatch=None, rounds=ROUNDS):
-    jcfg, tcfg = _cfgs()
-    kw = dict(n_workers=W, local_steps=K, prox=prox, adapt_rho=True)
+# the non-dense families, reduced, in float32, at W=2 from the reference's
+# state with every zero parameter leaf drawn anew (RWKV6's decay lora_b,
+# biases), as tests/test_torch_families.py draws them: at zero they would
+# hide a broken decay path from the first round
+FAMILIES = ["granite_moe_3b_a800m", "zamba2_1_2b", "rwkv6_1_6b",
+            "musicgen_large"]
+FAMILY_W = 2
+
+
+def _drawn(js):
+    """A reference state (ConsensusState, or parameters) with its zero
+    parameter leaves drawn anew, in z and in every worker's x."""
+    if not hasattr(js, "z"):
+        return jax.tree.map(jnp.asarray, nonzero(js))
+    z = jax.tree.map(jnp.asarray, nonzero(js.z))
+    n_workers = jax.tree_util.tree_leaves(js.x)[0].shape[0]
+    x = jax.tree.map(lambda a: jnp.broadcast_to(a, (n_workers,) + a.shape),
+                     z)
+    return js._replace(z=z, x=x)
+
+
+def _r_norm64(js):
+    """sqrt(sum over workers and leaves of ||x - z||^2) of a reference
+    state, in float64: the primal residual the next round reports."""
+    return float(np.sqrt(sum(
+        np.sum((np.asarray(x, np.float64) - np.asarray(z, np.float64)) ** 2)
+        for x, z in zip(jax.tree_util.tree_leaves(js.x),
+                        jax.tree_util.tree_leaves(js.z)))))
+
+
+def _admm_run(prox, monkeypatch=None, rounds=ROUNDS, arch="granite_8b"):
+    """``rounds`` rounds of both packages from one carried state; the
+    trace holds (reference metrics, port metrics, the float64 r_norm of
+    the reference's state entering the round)."""
+    jcfg, tcfg = _cfgs(arch)
+    n_w = W if arch == "granite_8b" else FAMILY_W
+    kw = dict(n_workers=n_w, local_steps=K, prox=prox, adapt_rho=True)
     jccfg = j_trainer.ConsensusConfig(**kw)
     tccfg = t_trainer.ConsensusConfig(**kw)
     js = j_trainer.init_state(jax.random.PRNGKey(0), jcfg, jccfg)
+    if arch != "granite_8b":
+        js = _drawn(js)
     ts = state_from_jax(_np(js), tcfg, device="cpu")
     jstep = jax.jit(j_trainer.make_round_step(jcfg, jccfg))
     tstep = t_trainer.make_round_step(tcfg, tccfg)
     trace = []
     for k in range(rounds):
         jb, tb = _batch(jcfg, tcfg, k)
-        shard = lambda b: {n: v.reshape((W, GB // W) + v.shape[1:])
+        shard = lambda b: {n: v.reshape((n_w, GB // n_w) + v.shape[1:])
                            for n, v in b.items()}
+        r = _r_norm64(js)
         js, jm = jstep(js, shard(jb))
         ts, tm = tstep(ts, shard(tb))
-        trace.append((jm, tm))
+        trace.append((jm, tm, r))
     return js, ts, trace
 
 
-@pytest.mark.parametrize("prox", ["none", "l1", "l2sq"])
-def test_round_step_matches_jax_from_carried_state(prox, monkeypatch):
+@pytest.mark.parametrize("arch,prox", [
+    pytest.param("granite_8b", p, id=p) for p in ("none", "l1", "l2sq")] + [
+    pytest.param(a, "l1", id=a) for a in FAMILIES])
+def test_round_step_matches_jax_from_carried_state(arch, prox, monkeypatch):
     """Three rounds, adapt_rho on: rho halves after round 1 (r = 0) and
-    doubles twice after, so the dual rescale is exercised on nonzero u."""
+    doubles twice after, so the dual rescale is exercised on nonzero u.
+    granite_8b under every prox; the non-dense families under l1, their
+    r_norm against the float64 norm (the module's docstring)."""
     calls = []
     real = t_ops.fused_z_update
     monkeypatch.setattr(t_ops, "fused_z_update",
                         lambda *a: calls.append(1) or real(*a))
-    js, ts, trace = _admm_run(prox)
-    for k, (jm, tm) in enumerate(trace):
+    js, ts, trace = _admm_run(prox, arch=arch)
+    for k, (jm, tm, r) in enumerate(trace):
         for name in ("loss", "r_norm", "s_norm", "rho"):
+            if name == "r_norm" and arch != "granite_8b":
+                np.testing.assert_allclose(float(tm[name]), r, rtol=1e-6,
+                                           err_msg=f"{arch} round {k} r_norm")
+                continue
             np.testing.assert_allclose(float(tm[name]), float(jm[name]),
                                        rtol=1e-5, atol=1e-7,
-                                       err_msg=f"round {k} {name}")
+                                       err_msg=f"{arch} round {k} {name}")
         assert ("z_nnz" in tm) == (prox == "l1")
-    assert [float(m["rho"]) for _, m in trace] == pytest.approx(
+    assert [float(m["rho"]) for _, m, _ in trace] == pytest.approx(
         [0.005, 0.01, 0.02])
-    _hold(ts, js, what=prox)
+    _hold(ts, js, what=f"{arch} {prox}")
     assert int(ts.round) == ROUNDS and ts.round.dtype == torch.int32
     n_leaves = len(leaves(ts.z))
     assert len(calls) == (n_leaves * ROUNDS if prox == "l1" else 0)
@@ -533,9 +586,15 @@ def test_round_step_without_the_dual_rescale_misses_the_tolerance(
         _hold(ts.u, js.u, what="u")
 
 
-def test_sgd_step_matches_jax_from_carried_state():
-    jcfg, tcfg = _cfgs()
+@pytest.mark.parametrize("arch", ["granite_8b"] + FAMILIES)
+def test_sgd_step_matches_jax_from_carried_state(arch):
+    """Three AdamW steps on the global batch of 8: loss, gradient norm and
+    every leaf of the parameters and moments; the non-dense families from
+    parameters with their zero leaves drawn anew."""
+    jcfg, tcfg = _cfgs(arch)
     jp = j_model.init_params(jax.random.PRNGKey(3), jcfg)
+    if arch != "granite_8b":
+        jp = _drawn(jp)
     jopt = j_opt.adamw_init(jp)
     tp, topt = sgd_state_from_jax((_np(jp), _np(jopt)), tcfg, device="cpu")
     jstep = jax.jit(j_trainer.make_sgd_step(jcfg))
@@ -546,8 +605,9 @@ def test_sgd_step_matches_jax_from_carried_state():
         tp, topt, tm = tstep(tp, topt, tb)
         for name in ("loss", "grad_norm"):
             np.testing.assert_allclose(float(tm[name]), float(jm[name]),
-                                       rtol=1e-5, err_msg=f"step {k} {name}")
-    _hold((tp, topt), (jp, jopt), what="sgd")
+                                       rtol=1e-5,
+                                       err_msg=f"{arch} step {k} {name}")
+    _hold((tp, topt), (jp, jopt), what=f"{arch} sgd")
 
 
 def test_state_from_jax_carries_every_leaf_bit_for_bit():
