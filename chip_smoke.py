@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases 1,9    # LM training
     python3 chip_smoke.py --phases 1,11   # the sharded steps and dry-run
     python3 chip_smoke.py --phases 1,12   # training the other families
+    python3 chip_smoke.py --phases 1,13   # decode over slot shards
     python3 chip_smoke.py --src OTHER/src # time another checkout's ADMM
                                           # kernels, nothing else
 
@@ -166,11 +167,34 @@ caught):
      its plain version on round 2's inputs; peak memory; the loss lower
      after the third round than after the first; then rounds 1-2 again
      from the same seed, z and the metrics bit for bit;
-then the kernels line {"kernels": [...]} (when phases 2, 4, 5, 6, 7 and
-10 ran; each entry names the kernel's design in "body" and its launches
-on each main path in "launches_by_phase", phase 9's, 11's and 12's among
-them when they ran; the flash kernel's causal=False instantiation is an entry
-of its own) and the last line
+  13. decode over a cache whose slot axis is split (the decode kernel's
+     partial mode, ``models/attention.combine_partials``, rule "decode" of
+     ``parallel/shards.py``): (a) in one process, phase 2's decode shape
+     (8, 2112, 32, 8, 128) in bf16 and float32 under two position sets
+     that leave shards with no live slot, and mixtral's wrapped 4096-slot
+     ring, each cut into 2, 4 and 16 shards: each shard's (o, m, l) from
+     the kernel held against the plain partial (an empty shard exactly
+     (0, -1e30, 0)), the shards combined by a local reduction and held
+     against the whole-cache kernel and the plain decode, a control (the
+     ring without its last shard) that must miss; one partial launch timed
+     at decode_32k's per-rank shape (8 sequences, 2048 of 32768 slots)
+     beside the whole-cache kernel on the same slots, the plain partial and
+     its byte bound; (b) four processes on the one card (gloo on CUDA
+     tensors, a 1x4 mesh): granite_8b's decode attention at full width
+     over a 4096-slot cache split 4 ways through ``ops.decode_attention``
+     on DTensors (bf16 with ranks 2 and 3 holding no live slot, float32
+     with rows ending on the ranks' edges, mixtral's wrapped ring), each
+     process's output held against the whole-cache kernel and the plain
+     decode, one partial launch and the combine's two all-reduces a
+     process and no all-gather (this machine's gloo crashes on the
+     functional all-gather of CUDA tensors, so a whole sharded decode
+     step cannot run here; the four-rank CPU test runs it);
+then the kernels line {"kernels": [...]} (when phases 2, 4, 5, 6, 7, 10
+and 13 ran; each entry names the kernel's design in "body" and its
+launches on each main path in "launches_by_phase", phase 9's, 11's and
+12's among them when they ran; the flash kernel's causal=False
+instantiation and the decode kernel's partial mode are entries of their
+own) and the last line
 {"ok": true, "device": {...}}.
 
 It imports torch and the port only.  Without a CUDA device, or outside a
@@ -3848,6 +3872,303 @@ def phase_family_train(torch, configs, trainer, lm_data, moe, ssm, tree, ops,
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 13: decode over slot shards (the decode kernel's partial mode and the
+# softmax combined across shards)
+# ---------------------------------------------------------------------------
+
+# (a) in one process: the serving decode shape of phase 2 in bf16 and
+# float32 under two position sets (rows whose live slots end in the first
+# shard of 16, on a shard boundary, past the middle; "early" leaves the
+# second half of the cache with no live slot), and mixtral's wrapped
+# 4096-slot ring; each cut into R shards of its slots
+SLOT_SHARDS = (2, 4, 16)
+SHARD_CASES = {"mixed": [0, 100, 527, 1055, 1056, 1500, 2047, 2111],
+               "early": [0, 5, 64, 131, 132, 263, 500, 1000]}
+RING_SHAPE = (4, 4096, 32, 8, 128)
+RING_POSITIONS = [4095, 4096, 4639, 8191]
+# a shard's float32 state (m, l) against the plain partial's: the same
+# float32 scores summed in another order, the kernel's exponent taken in
+# log2 units and m converted by one multiply
+STATE_RTOL = 1e-4
+# decode_32k's per-rank work on the (16, 16) mesh: 8 sequences, 2048 of
+# 32768 slots (rank 5's, every slot live), granite_8b's heads
+RANK_SHAPE = (8, 2048, 32, 8, 128)
+RANK_SLOTS = 32768
+# (b) four processes on the one card (gloo: NCCL refuses two ranks on one
+# device), a 1x4 mesh, granite_8b's decode attention at full width over a
+# 4096-slot cache (1024 slots a rank) through ops.decode_attention: bf16
+# with ranks 2 and 3 holding no live slot, float32 with rows ending on
+# every rank's edges, and mixtral's wrapped ring.  q comes replicated:
+# this machine's gloo crashes (SIGSEGV in wait_tensor) on the functional
+# all-gather on CUDA tensors that DTensor's Shard -> Replicate uses, so a
+# whole decode step, and a q split by heads, cannot run here (PERF.md)
+SHARD_RANKS = 4
+SHARD_CASES_B = [
+    ("bfloat16", (8, 4096, 32, 8, 128),
+     [0, 5, 100, 500, 1023, 1024, 1500, 2047], "early"),
+    ("float32", (8, 4096, 32, 8, 128),
+     [0, 1023, 1024, 2047, 2048, 3071, 3072, 4095], "edges"),
+    ("bfloat16", (4, 4096, 32, 8, 128), [4095, 4096, 4639, 8191], "ring"),
+]
+
+
+def slot_bounds(S: int, R: int):
+    n = S // R
+    return [(r * n, (r + 1) * n) for r in range(R)]
+
+
+def combine_stacked(torch, attention, parts, dtype):
+    """``combine_partials`` over the shards' states stacked on a new
+    leading axis (the one-process form of the ranks' all-reduces)."""
+    o, m, l = (torch.stack(t) for t in zip(*parts))
+    return attention.combine_partials(o, m, l, lambda t: t.amax(dim=0),
+                                      lambda t: t.sum(dim=0), dtype=dtype)
+
+
+def hold_partial(torch, attention, got, want, rtol, name):
+    """One shard's (o, m, l) from the kernel against the plain partial's:
+    o by rows at ``rtol``, m and l at STATE_RTOL; a row with no live slot
+    exactly (0, -1e30, 0).  Returns (worst o row gap, worst state gap,
+    max |o - plain|, rows with no live slot)."""
+    o, m, l = got
+    po, pm, pl = want
+    empty = pl == 0
+    if not torch.equal(empty, l == 0):
+        fail(f"{name}: the kernel and the plain partial disagree on which "
+             f"rows hold no live slot")
+    if (o[empty] != 0).any() or (m[empty] != attention.NEG_INF).any():
+        fail(f"{name}: a row with no live slot is not (0, -1e30, 0)")
+    live = ~empty
+    if not live.any():
+        return 0.0, 0.0, 0.0, int(empty.sum())
+    gap, err = hold_rows(torch, o[live], po[live], rtol, name)
+    state = max(float(((m - pm).abs() / pm.abs().clamp(min=1.0))[live].max()),
+                float(((l - pl).abs() / pl)[live].max()))
+    if not math.isfinite(state) or state > STATE_RTOL:
+        fail(f"{name}: the shard's (m, l) is {state:.3e} off the plain "
+             f"partial's, over {STATE_RTOL:g}")
+    return gap, state, err, int(empty.sum())
+
+
+def slot_shards_one(torch, dec, attention):
+    """(a): every case cut into each R of SLOT_SHARDS shards, the partial
+    kernel on each shard held against the plain partial, the shards
+    combined and held against the whole-cache kernel and the plain decode;
+    a control (the ring without its last shard) that must miss; then one
+    partial launch timed at decode_32k's per-rank shape beside the
+    whole-cache kernel on the same slots, the plain partial and the byte
+    bound.  Returns the kernels line's entry."""
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [(dt, (8, SERVE_P + SERVE_GEN, 32, 8, 128), pos, name)
+             for dt in (bf, f32) for name, pos in SHARD_CASES.items()]
+    cases.append((bf, RING_SHAPE, RING_POSITIONS, "ring"))
+    worst = {}          # (measure, type) -> the worst reading
+    abs_err, n_empty, n_cuts = 0.0, 0, 0
+    for seed, (dtype, (B, S, H, KV, hd), pos, name) in enumerate(cases):
+        tname = str(dtype).split(".")[-1]
+        rtol = ATTN_ROW_RTOL[tname]
+        q, kc, vc = attn_inputs(torch, [(B, 1, H, hd), (B, S, KV, hd),
+                                        (B, S, KV, hd)], dtype, 130 + seed)
+        p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        whole = dec.decode_attention_cuda(q, kc, vc, p)
+        q32, k32, v32 = (t.float() for t in (q, kc, vc))
+        plain = attention.decode_attention(q32, k32, v32, p)
+        for R in SLOT_SHARDS:
+            tag = f"[13a] {name} {tname} {(B, S, H, KV, hd)} over {R} shards"
+            parts = []
+            for lo, hi in slot_bounds(S, R):
+                got = dec.decode_attention_partial_cuda(
+                    q, kc[:, lo:hi], vc[:, lo:hi], p, lo, S)
+                want = attention.decode_attention_partial(
+                    q32, k32[:, lo:hi], v32[:, lo:hi], p, lo, S)
+                torch.cuda.synchronize()
+                gap, state, err, empty = hold_partial(
+                    torch, attention, got, want, rtol,
+                    f"{tag}, slots [{lo}, {hi})")
+                for key, val in (("part", gap), ("state", state)):
+                    worst[key, tname] = max(worst.get((key, tname), 0.0),
+                                            val)
+                abs_err = max(abs_err, err)
+                n_empty += empty
+                parts.append(got)
+            out = combine_stacked(torch, attention, parts, dtype)
+            torch.cuda.synchronize()
+            if out.dtype != dtype or not torch.isfinite(out).all():
+                fail(f"{tag}: the combine is not finite {dtype}")
+            for key, want in (("whole", whole), ("plain", plain)):
+                worst[key, tname] = max(worst.get((key, tname), 0.0),
+                                        hold_rows(torch, out, want, rtol,
+                                                  f"{tag} vs {key}")[0])
+            n_cuts += 1
+        if name == "ring":
+            seen = control_rows(torch, combine_stacked(
+                torch, attention, parts[:-1], f32), plain, rtol,
+                "[13a] the ring without its last shard")
+        del q, kc, vc, q32, k32, v32, whole, plain, parts
+    def two(key):
+        return f"{worst[key, 'float32']:.2e} / {worst[key, 'bfloat16']:.2e}"
+    say(f"[13a] {n_cuts} cuts ({len(cases)} cases x R in {SLOT_SHARDS}; "
+        f"{n_empty} (row, head) states of shards with no live slot, each "
+        f"exactly (0, -1e30, 0)), float32 / bf16: worst row gap of the "
+        f"combine against the whole-cache kernel {two('whole')}, against "
+        f"the plain decode {two('plain')} (limits "
+        f"{ATTN_ROW_RTOL['float32']:g} / {ATTN_ROW_RTOL['bfloat16']:g}); "
+        f"each shard's o against the plain partial {two('part')}, its (m, "
+        f"l) {two('state')} (limit {STATE_RTOL:g}); the ring without its "
+        f"last shard would fail {seen:.3f} of rows")
+
+    B, S, H, KV, hd = RANK_SHAPE
+    q, kc, vc = attn_inputs(torch, [(B, 1, H, hd), (B, S, KV, hd),
+                                    (B, S, KV, hd)], bf, 13)
+    off = 5 * S
+    p = torch.full((B,), RANK_SLOTS - 1, dtype=torch.int32, device="cuda")
+    p_whole = torch.full((B,), S - 1, dtype=torch.int32, device="cuda")
+    ms_k = graph_ms(torch, lambda: dec.decode_attention_partial_cuda(
+        q, kc, vc, p, off, RANK_SLOTS), 200)
+    ms_w = graph_ms(torch, lambda: dec.decode_attention_cuda(q, kc, vc,
+                                                             p_whole), 200)
+    ms_p = graph_ms(torch, lambda: attention.decode_attention_partial(
+        q, kc, vc, p, off, RANK_SLOTS), 50)
+    n_bytes = 2.0 * (2 * B * S * KV * hd + B * H * hd) \
+        + 4.0 * (B * H * hd + 2 * B * H + B)
+    n_ops = 4.0 * B * H * hd * S
+    b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
+    plan = dec.device_plan(bf, B, KV, H // KV, hd, S, "cuda")
+    say(f"[13a] one partial launch at decode_32k's per-rank shape (B, S, H,"
+        f" KV, hd) = {RANK_SHAPE} bf16, slots [{off}, {off + S}) of "
+        f"{RANK_SLOTS}, all live: {ms_k:.4f} ms a launch (CUDA graph; "
+        f"{plan[0]} splits of {plan[1]} slots), the whole-cache kernel on "
+        f"the same slots {ms_w:.4f} ms (partial / whole "
+        f"{ms_k / ms_w:.3f}), the plain partial {ms_p:.4f} ms; bound "
+        f"{b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.2f} MB at 3.35 TB/s), "
+        f"{b_ms / ms_k:.3f} of it; {nvidia_smi('name,power.limit')}")
+    del q, kc, vc
+    return dict(ms=ms_k, plain_ms=ms_p, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by, whole_ms=ms_w, max_abs_err=abs_err,
+                shape=list(RANK_SHAPE) + [RANK_SLOTS], body=dec.BODY)
+
+
+def shard_decode_rank(rank: int, port: int, out: str):
+    """(b)'s process ``rank``: each of SHARD_CASES_B's decodes on the 1x4
+    mesh through ``ops.decode_attention`` (rule "decode": this rank's 1024
+    slots through the partial kernel, the softmax states combined across
+    the four processes by gloo all-reduces) under the op counter, held
+    against the whole-cache kernel and the plain decode on the same
+    inputs, which every process draws alike.  Writes its launches,
+    collectives and gaps to ``out``/rank<r>.json."""
+    import faulthandler
+    faulthandler.enable()       # a crash in a collective names its frame
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import op_analysis
+    from repro_torch.models import attention
+    from repro_torch.parallel.shards import wrap
+    torch.cuda.set_device(0)
+    R = SHARD_RANKS
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=R)
+    try:
+        mesh = mesh_mod.make_host_mesh(1, R)
+        res = []
+        for seed, (dtype, (B, S, H, KV, hd), pos, name) in enumerate(
+                SHARD_CASES_B):
+            dt = getattr(torch, dtype)
+            q, kc, vc = attn_inputs(torch, [(B, 1, H, hd), (B, S, KV, hd),
+                                            (B, S, KV, hd)], dt, 230 + seed)
+            p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+            S_l = S // R
+            mine = slice(rank * S_l, (rank + 1) * S_l)
+            dq = wrap(q, mesh, [Replicate(), Replicate()])
+            dk, dv = (wrap(t[:, mine], mesh, [Replicate(), Shard(1)],
+                           t.shape) for t in (kc, vc))
+            dec.reset_launches()
+            with torch.no_grad():
+                o, summary = op_analysis.cost_summary(ops.decode_attention,
+                                                      dq, dk, dv, p)
+            launches = dict(dec.LAUNCHES)
+            o = o.to_local()
+            whole = dec.decode_attention_cuda(q, kc, vc, p)
+            plain = attention.decode_attention(q.float(), kc.float(),
+                                               vc.float(), p)
+            torch.cuda.synchronize()
+            rtol = ATTN_ROW_RTOL[dtype]
+            res.append(dict(
+                name=name, dtype=dtype, launches=launches,
+                by_type=summary["by_type"],
+                n_coll=summary["n_collective_ops"],
+                live=int((torch.clamp(torch.clamp(p.long() + 1, max=S)
+                                      - rank * S_l, 0, S_l)).sum()),
+                whole=hold_rows(torch, o, whole, rtol,
+                                f"[13b] {name} rank {rank} vs whole")[0],
+                plain=hold_rows(torch, o, plain, rtol,
+                                f"[13b] {name} rank {rank} vs plain")[0]))
+        with open(Path(out) / f"rank{rank}.json", "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def slot_shards_ranks(torch, card):
+    """(b): SHARD_RANKS processes on the one card, spawned after the
+    kernels were built here (four builds into one directory would race);
+    every process's decodes held at ATTN_ROW_RTOL (in the process), each
+    a single partial launch with the combine's two all-reduces and no
+    all-gather.  Returns the partial kernel's launches over the
+    processes."""
+    import socket
+    import torch.multiprocessing as mp
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.time()
+        mp.spawn(shard_decode_rank, args=(port, out), nprocs=SHARD_RANKS)
+        wall = time.time() - t0
+        res = [json.loads((Path(out) / f"rank{r}.json").read_text())
+               for r in range(SHARD_RANKS)]
+    for r, cases in enumerate(res):
+        for c in cases:
+            if c["launches"] != {"decode_attention": 0,
+                                 "decode_attention_partial": 1}:
+                fail(f"[13b] rank {r}, {c['name']}: launches "
+                     f"{c['launches']}, expected one partial launch")
+            if c["n_coll"] != 2 or set(c["by_type"]) != {"all-reduce"}:
+                fail(f"[13b] rank {r}, {c['name']}: collectives "
+                     f"{c['by_type']} in {c['n_coll']} ops, expected the "
+                     f"combine's two all-reduces")
+    for i, (dtype, shape, pos, name) in enumerate(SHARD_CASES_B):
+        cases = [x[i] for x in res]
+        say(f"[13b] {name} {dtype} {shape} over {SHARD_RANKS} processes on "
+            f"the one card (gloo, 1x{SHARD_RANKS} mesh, positions {pos}; "
+            f"live slots by rank {[c['live'] for c in cases]}): "
+            f"ops.decode_attention = one partial launch a rank and two "
+            f"all-reduces ({cases[0]['by_type']['all-reduce']:.0f} link B "
+            f"a rank), no all-gather; worst row gap against the whole-cache "
+            f"kernel {max(c['whole'] for c in cases):.2e}, against the "
+            f"plain decode {max(c['plain'] for c in cases):.2e} (limit "
+            f"{ATTN_ROW_RTOL[dtype]:g})")
+    say(f"[13b] {wall:.1f} s with the spawn (gloo stages through the host: "
+        f"no time is read from it); {card}")
+    return sum(c["launches"]["decode_attention_partial"]
+               for cases in res for c in cases)
+
+
+def phase_slot_shards(torch, dec, attention, card):
+    """Phase 13 (a) and (b); returns (a)'s kernels-line entry and (b)'s
+    partial launches (the main path's: the rule's)."""
+    with torch.no_grad():
+        r = slot_shards_one(torch, dec, attention)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r, slot_shards_ranks(torch, card)
+
+
 def time_admm_kernels(torch, src: Path):
     """The margin kernel's median time per call (logistic, paper shape)
     and the z-update's device time per call in a CUDA graph (D = 10 000
@@ -3882,7 +4203,7 @@ def time_admm_kernels(torch, src: Path):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--src", type=Path,
                     help="run no phase: time the margin kernel and the "
@@ -3890,8 +4211,8 @@ def main(argv=None):
                          "and print one JSON line (see time_admm_kernels)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
-    if not phases <= set(range(1, 13)):
-        fail(f"--phases takes phases 1 to 12, got {sorted(phases)}")
+    if not phases <= set(range(1, 14)):
+        fail(f"--phases takes phases 1 to 13, got {sorted(phases)}")
 
     if not (SRC / "repro_torch" / "api.py").is_file():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
@@ -3956,13 +4277,14 @@ def main(argv=None):
     # -> count
     by_phase = {k: {} for k in ("logistic", "hinge", "soft_threshold",
                                 "flash_attention", "flash_attention_noncausal",
-                                "decode_attention")}
+                                "decode_attention",
+                                "decode_attention_partial")}
     # phases 4 and 6's kernel-path runs: round_keys and launch counts, the
     # solo runs phase 7's jobs are held to
     solo, solo_launches = {}, {}
     # phase 4's sparse rows, which phase 8 reads when phase 4 ran
     paper_rows = {}
-    for phase in (4, 5, 6, 7, 8, 9, 10, 11, 12):
+    for phase in (4, 5, 6, 7, 8, 9, 10, 11, 12, 13):
         if phase not in phases:
             continue
         gc.collect()
@@ -3999,6 +4321,10 @@ def main(argv=None):
                                 tree, ops, fa, dec, st, card)
             for k, n in got.items():
                 by_phase[k]["11"] = n
+        elif phase == 13:
+            results["decode_attention_partial"], n = phase_slot_shards(
+                torch, dec, attention, card)
+            by_phase["decode_attention_partial"]["13"] = n
         elif phase == 12:
             phase_family_train_small(torch, configs, trainer, lm_data,
                                      model, moe, ssm, tree, st, fa)
@@ -4020,7 +4346,7 @@ def main(argv=None):
                 fa, ref)
             phase_train_cli(torch, train, tree)
         say(f"[{phase}] phase wall {time.time() - t0:.1f} s")
-    if not {2, 4, 5, 6, 7, 10} <= phases:
+    if not {2, 4, 5, 6, 7, 10, 13} <= phases:
         say(f"phases {sorted(phases)} passed")
         return
 
@@ -4044,6 +4370,10 @@ def main(argv=None):
         "decode_attention": ("decode_attention", "decode_attention",
                              "src/repro/kernels/decode_attention.py:26",
                              True, results["decode_attention"]["body"]),
+        "decode_attention_partial": (
+            "decode_attention_partial", "decode_attention",
+            "src/repro/kernels/decode_attention.py:26", True,
+            results["decode_attention_partial"]["body"] + " partial"),
     }
     kernels = []
     for key, (name, src, replaces, on_path, body) in meta.items():
@@ -4059,7 +4389,7 @@ def main(argv=None):
             shape=r["shape"], launches_by_phase=by_phase[key],
             **{k: r[k] for k in ("eager_ms", "eager_plain_ms", "read_ms",
                                  "floor_ms", "ms_1e6", "bound_ms_1e6",
-                                 "paths")
+                                 "paths", "whole_ms")
                if k in r}))
     say(card)
     say(json.dumps({"kernels": kernels}))

@@ -42,6 +42,17 @@
 //     weights exp(m_j - max(M, -1e30)), l == 0 -> 1, writes o and resets
 //     the counter to 0, so a CUDA graph replay finds it zeroed.  No float
 //     atomics: a run is bitwise reproducible.
+//
+// Partial mode (decode_attention_partial_fwd): the caches hold one shard
+// of a cache's slots, [slot_offset, slot_offset + Smax) of s_total (the
+// slot axis split over ranks).  Liveness keeps the global rule: the
+// shard's live slots are clamp(live_slots(p, s_total) - slot_offset, 0,
+// Smax).  The same launch, splits and combine run over those slots, and the
+// combining block writes the shard's softmax state in float32 instead of
+// o: o normalised by its own l, m (natural-log units, floored at -1e30)
+// and l, per (b, h).  A shard with no live slot writes o = 0, m = -1e30,
+// l = 0 (split 0 still runs), so a combine across shards stays finite.
+// The whole-cache path is the PARTIAL = false instantiation, unchanged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,6 +64,7 @@ namespace {
 
 constexpr int kMaxHd = 128;    // 4 head dims per lane
 constexpr float kNegInf = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
@@ -122,13 +134,17 @@ __device__ __forceinline__ void scatter_level(float (&val)[32], int lane) {
   }
 }
 
-template <typename T, int GM>
+// PARTIAL: o is float32 and m_out, l_out (B, H) receive the shard's
+// softmax state (see the header); otherwise o is T and both are unused
+template <typename T, int GM, bool PARTIAL>
 __global__ void __launch_bounds__(Shape<GM>::kThreads)
 decode_split_kv(const T* __restrict__ q, const T* __restrict__ kc,
                 const T* __restrict__ vc, const int* __restrict__ positions,
-                T* __restrict__ o, float* __restrict__ part,
+                void* __restrict__ o, float* __restrict__ m_out,
+                float* __restrict__ l_out, float* __restrict__ part,
                 int* __restrict__ arrivals, int Smax, int KV, int G, int hd,
-                int n_split, int split_len, long long q_sb, long long q_sh,
+                int n_split, int split_len, int slot_offset, int s_total,
+                long long q_sb, long long q_sh,
                 long long k_sb, long long k_ss, long long k_sh,
                 long long v_sb, long long v_ss, long long v_sh,
                 long long o_sb, long long o_sh, float scale_log2) {
@@ -141,7 +157,10 @@ decode_split_kv(const T* __restrict__ q, const T* __restrict__ kc,
   const int split = blockIdx.x;
   const int bkv = blockIdx.y;
   const int b = bkv / KV, kv = bkv % KV;
-  const int live = live_slots(positions[b], Smax);
+  const int live =
+      PARTIAL ? min(max(live_slots(positions[b], s_total) - slot_offset, 0),
+                    Smax)
+              : live_slots(positions[b], Smax);
   const int lo = split * split_len;
   const int hi = min(min(lo + split_len, Smax), live);
   if (split > 0 && lo >= hi) return;   // not counted by the combine
@@ -376,8 +395,22 @@ decode_split_kv(const T* __restrict__ q, const T* __restrict__ kc,
       A.z = fmaf(wt, a.z, A.z);
       A.w = fmaf(wt, a.w, A.w);
     }
+    if (PARTIAL) {
+      const float den = Lw == 0.f ? 1.f : Lw;
+      float* dst = static_cast<float*>(o) + b * o_sb
+                   + (long long)(kv * G + g) * o_sh + d;
+      *reinterpret_cast<float4*>(dst) = make_float4(A.x / den, A.y / den,
+                                                    A.z / den, A.w / den);
+      if (d == 0) {
+        const long long row = (long long)b * KV * G + kv * G + g;
+        m_out[row] = fmaxf(M * kLn2, kNegInf);
+        l_out[row] = Lw;
+      }
+      continue;
+    }
     if (Lw == 0.f) Lw = 1.f;
-    T* dst = o + b * o_sb + (long long)(kv * G + g) * o_sh + d;
+    T* dst = static_cast<T*>(o) + b * o_sb + (long long)(kv * G + g) * o_sh
+             + d;
     dst[0] = from_float<T>(A.x / Lw);
     dst[1] = from_float<T>(A.y / Lw);
     dst[2] = from_float<T>(A.z / Lw);
@@ -385,12 +418,13 @@ decode_split_kv(const T* __restrict__ q, const T* __restrict__ kc,
   }
 }
 
-template <typename T, int GM>
+template <typename T, int GM, bool PARTIAL>
 int configure() {
   static bool done = false;
   if (!done) {
     const cudaError_t err = cudaFuncSetAttribute(
-        decode_split_kv<T, GM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        decode_split_kv<T, GM, PARTIAL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem_bytes<T, GM>(kMaxHd));
     if (err != cudaSuccess) return (int)err;
     done = true;
@@ -398,30 +432,44 @@ int configure() {
   return 0;
 }
 
-template <typename T, int GM>
-int launch(const void* q, const void* k, const void* v, const int* positions,
-           void* o, float* part, int* arrivals, int B, int Smax, int KV,
-           int G, int hd, int n_split, int split_len, const long long* st,
-           float scale, cudaStream_t stream) {
-  const int rc = configure<T, GM>();
+// one call's operands; m, l, slot_offset and s_total are read in partial
+// mode only
+struct Args {
+  const void *q, *k, *v;
+  const int* positions;
+  void* o;
+  float *m, *l, *part;
+  int* arrivals;
+  int B, Smax, KV, G, hd, n_split, split_len, slot_offset, s_total;
+  const long long* st;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int GM, bool PARTIAL>
+int launch(const Args& a) {
+  const int rc = configure<T, GM, PARTIAL>();
   if (rc) return rc;
-  decode_split_kv<T, GM><<<dim3(n_split, B * KV), Shape<GM>::kThreads,
-                           smem_bytes<T, GM>(hd), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), positions, static_cast<T*>(o), part,
-      arrivals, Smax, KV, G, hd, n_split, split_len, st[0], st[1], st[2],
-      st[3], st[4], st[5], st[6], st[7], st[8], st[9],
-      scale * 1.4426950408889634f);
+  const long long* st = a.st;
+  decode_split_kv<T, GM, PARTIAL><<<dim3(a.n_split, a.B * a.KV),
+                                    Shape<GM>::kThreads,
+                                    smem_bytes<T, GM>(a.hd), a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), a.positions, a.o, a.m, a.l, a.part,
+      a.arrivals, a.Smax, a.KV, a.G, a.hd, a.n_split, a.split_len,
+      a.slot_offset, a.s_total, st[0], st[1], st[2], st[3], st[4], st[5],
+      st[6], st[7], st[8], st[9], a.scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int GM>
 int occupancy(int hd) {
-  const int rc = configure<T, GM>();
+  const int rc = configure<T, GM, false>();
   if (rc) return -rc;
   int n = 0;
   const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, decode_split_kv<T, GM>, Shape<GM>::kThreads, smem_bytes<T, GM>(hd));
+      &n, decode_split_kv<T, GM, false>, Shape<GM>::kThreads,
+      smem_bytes<T, GM>(hd));
   return err == cudaSuccess ? n : -(int)err;
 }
 
@@ -433,22 +481,22 @@ int blocks_per_sm(int G, int hd) {
   return occupancy<T, 8>(hd);
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, const int* pos,
-             void* o, float* part, int* arr, int B, int Smax, int KV, int G,
-             int hd, int ns, int sl, const long long* st, float scale,
-             cudaStream_t stream) {
-  if (G <= 1)
-    return launch<T, 1>(q, k, v, pos, o, part, arr, B, Smax, KV, G, hd, ns,
-                        sl, st, scale, stream);
-  if (G <= 2)
-    return launch<T, 2>(q, k, v, pos, o, part, arr, B, Smax, KV, G, hd, ns,
-                        sl, st, scale, stream);
-  if (G <= 4)
-    return launch<T, 4>(q, k, v, pos, o, part, arr, B, Smax, KV, G, hd, ns,
-                        sl, st, scale, stream);
-  return launch<T, 8>(q, k, v, pos, o, part, arr, B, Smax, KV, G, hd, ns, sl,
-                      st, scale, stream);
+template <typename T, bool PARTIAL>
+int dispatch(const Args& a) {
+  if (a.G <= 1) return launch<T, 1, PARTIAL>(a);
+  if (a.G <= 2) return launch<T, 2, PARTIAL>(a);
+  if (a.G <= 4) return launch<T, 4, PARTIAL>(a);
+  return launch<T, 8, PARTIAL>(a);
+}
+
+template <bool PARTIAL>
+int run(int is_bf16, const Args& a) {
+  if (a.B * a.KV == 0 || a.Smax == 0) return 0;
+  if (a.G < 1 || a.G > 8 || a.hd > kMaxHd || a.n_split < 1 ||
+      (long long)a.n_split * a.split_len < a.Smax)
+    return (int)cudaErrorInvalidValue;
+  return is_bf16 ? dispatch<__nv_bfloat16, PARTIAL>(a)
+                 : dispatch<float, PARTIAL>(a);
 }
 
 }  // namespace
@@ -476,16 +524,26 @@ extern "C" int decode_attention_fwd(int is_bf16, const void* q, const void* k,
                                     int n_split, int split_len,
                                     const long long* strides, float scale,
                                     void* stream) {
-  if (B * KV == 0 || Smax == 0) return 0;
-  if (G < 1 || G > 8 || hd > kMaxHd || n_split < 1 ||
-      (long long)n_split * split_len < Smax)
+  const Args a{q, k, v, positions, o, nullptr, nullptr, part, arrivals,
+               B, Smax, KV, G, hd, n_split, split_len, 0, Smax, strides,
+               scale, static_cast<cudaStream_t>(stream)};
+  return run<false>(is_bf16, a);
+}
+
+// The partial mode: the caches hold slots [slot_offset, slot_offset + Smax)
+// of an s_total-slot cache; o is float32 (B, 1, H, hd) at the o strides
+// given (in floats, 16-byte aligned), m and l float32 (B, H) contiguous.
+// Otherwise as decode_attention_fwd.
+extern "C" int decode_attention_partial_fwd(
+    int is_bf16, const void* q, const void* k, const void* v,
+    const int* positions, float* o, float* m, float* l, float* part,
+    int* arrivals, int B, int Smax, int KV, int G, int hd, int n_split,
+    int split_len, int slot_offset, int s_total, const long long* strides,
+    float scale, void* stream) {
+  if (slot_offset < 0 || (long long)slot_offset + Smax > s_total)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16
-             ? dispatch<__nv_bfloat16>(q, k, v, positions, o, part, arrivals,
-                                       B, Smax, KV, G, hd, n_split, split_len,
-                                       strides, scale, st)
-             : dispatch<float>(q, k, v, positions, o, part, arrivals, B, Smax,
-                               KV, G, hd, n_split, split_len, strides, scale,
-                               st);
+  const Args a{q, k, v, positions, o, m, l, part, arrivals, B, Smax, KV, G,
+               hd, n_split, split_len, slot_offset, s_total, strides, scale,
+               static_cast<cudaStream_t>(stream)};
+  return run<true>(is_bf16, a);
 }

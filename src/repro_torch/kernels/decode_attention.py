@@ -12,6 +12,14 @@ kernel's occupancy.  The wrapper checks its operands, allocates the output
 and the split partials with ``torch.empty``, launches on PyTorch's current
 stream and raises if the launch failed.  Its plain version is
 ``models/attention.decode_attention``.
+
+``decode_attention_partial_cuda`` is the same kernel's partial mode, for a
+cache whose slot axis is split over ranks: the caches hold slots
+[slot_offset, slot_offset + S) of an ``s_total``-slot cache, liveness
+follows the global positions and ring rule, and the launch writes the
+shard's float32 softmax state (o normalised by its own l, m, l) for
+``models/attention.combine_partials`` to merge across the shards.  Its
+plain version is ``models/attention.decode_attention_partial``.
 """
 from __future__ import annotations
 
@@ -23,7 +31,7 @@ import torch
 
 from repro_torch.kernels import build
 
-LAUNCHES = {"decode_attention": 0}
+LAUNCHES = {"decode_attention": 0, "decode_attention_partial": 0}
 BODY = "split_kv"
 MAX_HEAD_DIM = 128
 MAX_GROUP = 8
@@ -36,7 +44,8 @@ _ARRIVALS: Dict[torch.device, torch.Tensor] = {}
 
 
 def reset_launches() -> None:
-    LAUNCHES["decode_attention"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -48,6 +57,12 @@ def _lib():
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    part = lib.decode_attention_partial_fwd
+    part.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
+                     + [ctypes.c_int] * 9
+                     + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                        ctypes.c_void_p])
+    part.restype = ctypes.c_int
     lib.decode_attention_blocks_per_sm.argtypes = [ctypes.c_int] * 3
     lib.decode_attention_blocks_per_sm.restype = ctypes.c_int
     return lib
@@ -102,26 +117,24 @@ def _arrivals(dev, n: int) -> torch.Tensor:
     return buf
 
 
-def decode_attention_cuda(q, k_cache, v_cache, positions) -> torch.Tensor:
-    """q (B, 1, H, hd), caches (B, Smax, KV, hd), positions (B,) int32 ->
-    o (B, 1, H, hd); CUDA tensors, q and the caches of one type (float32
-    or bfloat16), H = G * KV with G <= 8, hd <= 128."""
+def _checked(name, q, k_cache, v_cache, positions):
+    """(B, Smax, KV, G, hd) of operands the kernel takes; raises on any
+    other."""
     dev = q.device
     if dev.type != "cuda":
-        raise ValueError(f"decode_attention_cuda needs CUDA tensors, got "
-                         f"{dev}")
+        raise ValueError(f"{name} needs CUDA tensors, got {dev}")
     if q.dtype not in _TYPES:
         raise ValueError(f"decode attention takes float32 or bfloat16, got "
                          f"{q.dtype}")
     vec = 16 // q.element_size()          # 16-byte copies
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+    for what, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if t.device != dev or t.dtype != q.dtype or t.dim() != 4:
-            raise ValueError(f"{name} must be a 4-d {q.dtype} tensor on "
+            raise ValueError(f"{what} must be a 4-d {q.dtype} tensor on "
                              f"{dev}, got {tuple(t.shape)} {t.dtype} on "
                              f"{t.device}")
         if t.stride(3) != 1 or any(s % vec for s in t.stride()[:3]) \
                 or t.data_ptr() % 16:
-            raise ValueError(f"{name}: the head dim must be contiguous and "
+            raise ValueError(f"{what}: the head dim must be contiguous and "
                              f"the other strides multiples of {vec}, from a "
                              f"16-byte aligned base; got {t.stride()}")
     B, one, H, hd = q.shape
@@ -141,13 +154,27 @@ def decode_attention_cuda(q, k_cache, v_cache, positions) -> torch.Tensor:
             or tuple(positions.shape) != (B,) or not positions.is_contiguous():
         raise ValueError(f"positions must be a contiguous ({B},) int32 tensor "
                          f"on {dev}")
-    G = H // KV
-    lib = _lib()
-    n_split, split_len = device_plan(q.dtype, B, KV, G, hd, Smax, dev)
-    o = torch.empty((B, 1, H, hd), dtype=q.dtype, device=dev)
+    return B, Smax, KV, H // KV, hd
+
+
+def _scratch(q, B, Smax, KV, G, hd):
+    """The split plan, its partials' scratch and the arrival counters."""
+    n_split, split_len = device_plan(q.dtype, B, KV, G, hd, Smax, q.device)
     part = torch.empty((B * KV * n_split * G * (hd + 2),),
-                       dtype=torch.float32, device=dev)
-    arrivals = _arrivals(dev, B * KV)
+                       dtype=torch.float32, device=q.device)
+    return n_split, split_len, part, _arrivals(q.device, B * KV)
+
+
+def decode_attention_cuda(q, k_cache, v_cache, positions) -> torch.Tensor:
+    """q (B, 1, H, hd), caches (B, Smax, KV, hd), positions (B,) int32 ->
+    o (B, 1, H, hd); CUDA tensors, q and the caches of one type (float32
+    or bfloat16), H = G * KV with G <= 8, hd <= 128."""
+    B, Smax, KV, G, hd = _checked("decode_attention_cuda", q, k_cache,
+                                  v_cache, positions)
+    dev = q.device
+    lib = _lib()
+    o = torch.empty((B, 1, KV * G, hd), dtype=q.dtype, device=dev)
+    n_split, split_len, part, arrivals = _scratch(q, B, Smax, KV, G, hd)
     strides = (ctypes.c_longlong * 10)(
         q.stride(0), q.stride(2), *k_cache.stride()[:3],
         *v_cache.stride()[:3], o.stride(0), o.stride(2))
@@ -163,3 +190,41 @@ def decode_attention_cuda(q, k_cache, v_cache, positions) -> torch.Tensor:
                            f"error {rc}")
     LAUNCHES["decode_attention"] += 1
     return o
+
+
+def decode_attention_partial_cuda(q, k_cache, v_cache, positions,
+                                  slot_offset: int, s_total: int):
+    """The partial mode: caches (B, S, KV, hd) holding slots [slot_offset,
+    slot_offset + S) of an ``s_total``-slot cache, q and positions as
+    ``decode_attention_cuda`` -> (o (B, 1, H, hd), m (B, 1, H), l (B, 1,
+    H)), float32: the shard's output normalised by its own l, its score
+    max (natural-log units, floored at -1e30) and its sum of exponentials
+    (0 where no slot of the shard is live, o 0 there)."""
+    B, S, KV, G, hd = _checked("decode_attention_partial_cuda", q, k_cache,
+                               v_cache, positions)
+    slot_offset, s_total = int(slot_offset), int(s_total)
+    if slot_offset < 0 or slot_offset + S > s_total:
+        raise ValueError(f"slots [{slot_offset}, {slot_offset + S}) are not "
+                         f"inside a cache of {s_total}")
+    dev = q.device
+    lib = _lib()
+    H = KV * G
+    o = torch.empty((B, 1, H, hd), dtype=torch.float32, device=dev)
+    m = torch.empty((B, 1, H), dtype=torch.float32, device=dev)
+    l = torch.empty((B, 1, H), dtype=torch.float32, device=dev)
+    n_split, split_len, part, arrivals = _scratch(q, B, S, KV, G, hd)
+    strides = (ctypes.c_longlong * 10)(
+        q.stride(0), q.stride(2), *k_cache.stride()[:3],
+        *v_cache.stride()[:3], o.stride(0), o.stride(2))
+    with torch.cuda.device(dev):
+        rc = lib.decode_attention_partial_fwd(
+            _TYPES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
+            v_cache.data_ptr(), positions.data_ptr(), o.data_ptr(),
+            m.data_ptr(), l.data_ptr(), part.data_ptr(), arrivals.data_ptr(),
+            B, S, KV, G, hd, n_split, split_len, slot_offset, s_total,
+            strides, hd ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"decode_attention_partial_fwd launch failed with "
+                           f"CUDA error {rc}")
+    LAUNCHES["decode_attention_partial"] += 1
+    return o, m, l

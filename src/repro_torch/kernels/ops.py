@@ -19,10 +19,16 @@ whose inputs would silently get no gradient.
 DTensor inputs (a sharded step, ``launch/steps.py``): a DTensor has no
 storage of its own, so the wrappers marked ``on_shards`` follow the rules
 of ``parallel/shards.py``.  On the card an attention kernel runs on each
-rank's local shards where that is exact, and raises otherwise (the decode
-cache's sequence-slot axis sharded over ``"model"`` among them); nothing
-is gathered to run a kernel.  On the CPU the plain attention runs on the
-DTensors.  The z-update takes any placement on either device.
+rank's local shards where that is exact: the batch or the heads split
+alike on every operand, and for ``decode_attention`` also the cache's
+slot axis, where each rank runs ``decode_attention_partial`` on its own
+slots and the ranks combine their softmax states with two all-reduces
+(on either device).  Any other placement raises with the placements
+named: a split head dim, a query split by batch where the cache splits
+its slots, K/V heads that do not split alike with the query's; nothing
+of a cache is gathered to run a kernel.  Otherwise, on the CPU, the
+plain attention runs on the DTensors.  The z-update takes any placement
+on either device.
 
 Each kernel call reports its operations and bytes to the hooks in
 ``KERNEL_HOOKS`` (``launch/op_analysis.py`` installs one while it counts a
@@ -193,7 +199,17 @@ def cross_attention(q, k, v):
     return attn_mod.cross_attention(q, k, v)
 
 
-@on_shards("kernel")
+def _report_decode(name, q, k_cache, pos, outs, live) -> None:
+    """A decode launch's FLOPs and bytes: ``live`` (B,) the slots it read
+    per row."""
+    if KERNEL_HOOKS:
+        n = float(live.sum())
+        row = 2 * k_cache.shape[2] * k_cache.shape[3] * k_cache.element_size()
+        _report(name, decode_flops(q.shape[0], q.shape[2], q.shape[3], n),
+                _nbytes(q, pos, *outs) + n * row)
+
+
+@on_shards("decode")
 def decode_attention(q, k_cache, v_cache, positions):
     """q (B,1,H,hd), caches (B,Smax,KV,hd), positions (B,) -> (B,1,H,hd).
     On the card the cache is read in place; positions go as int32."""
@@ -201,13 +217,28 @@ def decode_attention(q, k_cache, v_cache, positions):
         refuse_autograd("decode_attention", q, k_cache, v_cache)
         pos = positions.to(torch.int32).contiguous()
         o = dec_k.decode_attention_cuda(q, k_cache, v_cache, pos)
-        if KERNEL_HOOKS:          # the live slots are what the kernel reads
-            live = float(torch.clamp(pos.long() + 1,
-                                     max=k_cache.shape[1]).sum())
-            row = 2 * k_cache.shape[2] * k_cache.shape[3] \
-                * k_cache.element_size()
-            _report("decode_attention", decode_flops(
-                q.shape[0], q.shape[2], q.shape[3], live),
-                _nbytes(q, o, pos) + live * row)
+        _report_decode("decode_attention", q, k_cache, pos, (o,),
+                       torch.clamp(pos.long() + 1, max=k_cache.shape[1]))
         return o
     return attn_mod.decode_attention(q, k_cache, v_cache, positions)
+
+
+def decode_attention_partial(q, k_cache, v_cache, positions,
+                             slot_offset: int, s_total: int):
+    """One rank's shard of a decode over a slot-split cache: caches (B, S,
+    KV, hd) holding slots [slot_offset, slot_offset + S) of ``s_total``,
+    global positions (B,) -> the shard's float32 (o, m, l), which
+    ``attention.combine_partials`` merges across the shards.  On the card
+    the decode kernel's partial mode, reporting the shard's live slots;
+    on the CPU (or meta) its plain version."""
+    if q.is_cuda:
+        refuse_autograd("decode_attention_partial", q, k_cache, v_cache)
+        pos = positions.to(torch.int32).contiguous()
+        out = dec_k.decode_attention_partial_cuda(q, k_cache, v_cache, pos,
+                                                  slot_offset, s_total)
+        live = torch.clamp(torch.clamp(pos.long() + 1, max=s_total)
+                           - slot_offset, 0, k_cache.shape[1])
+        _report_decode("decode_attention_partial", q, k_cache, pos, out, live)
+        return out
+    return attn_mod.decode_attention_partial(q, k_cache, v_cache, positions,
+                                             slot_offset, s_total)

@@ -169,6 +169,50 @@ def decode_attention(q, k_cache, v_cache, positions) -> torch.Tensor:
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
+def decode_attention_partial(q, k_cache, v_cache, positions,
+                             slot_offset: int, s_total: int):
+    """One shard of a decode over a cache whose slot axis is split: the
+    caches (B, S, KV, hd) hold slots [slot_offset, slot_offset + S) of an
+    ``s_total``-slot cache -> (o (B, 1, H, hd), m (B, 1, H), l (B, 1, H)),
+    float32.  The reference kernel's masking on global slot indices (a
+    slot is live iff it is <= the position, or every slot once the
+    position reaches ``s_total``: a ring that has wrapped) and its
+    ``NEG_INF`` floor: m is the shard's score max floored at -1e30, l the
+    sum of exp(s - m) over its live slots, o the P·V sum divided by l (0
+    where no slot is live, as l == 0 -> 1)."""
+    B, _, H, hd = q.shape
+    _, S, KV, _ = k_cache.shape
+    qg = layers.split_dim(q[:, 0], 1, (KV, H // KV)).float()
+    s = torch.einsum("bkgd,bckd->bkgc", qg, k_cache.float()) * hd ** -0.5
+    slot = slot_offset + torch.arange(S, device=q.device)
+    pos = positions.to(q.device).long()[:, None]
+    valid = (pos >= s_total) | (slot[None, :] <= pos)         # (B, S)
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    m = torch.clamp(s.amax(dim=-1), min=NEG_INF)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    o = torch.einsum("bkgc,bckd->bkgd", p, v_cache.float())
+    o = o / torch.where(l == 0.0, torch.ones_like(l), l)[..., None]
+    return (o.reshape(B, 1, H, hd), m.reshape(B, 1, H), l.reshape(B, 1, H))
+
+
+def combine_partials(o, m, l, max_reduce, sum_reduce, dtype=None):
+    """Merge shards' softmax states (``decode_attention_partial``'s or the
+    kernel's partial mode's) into one decode output: M = max(m), w = l
+    exp(m - M), o = sum(o w) / sum(w) (sum(w) == 0 -> 1), cast to ``dtype``
+    last.  ``max_reduce`` and ``sum_reduce`` reduce over the shards:
+    all-reduces over a mesh dim's group, or a reduction over a stacked
+    leading axis; the two sums go as one packed tensor, so a combine takes
+    two reductions.  Every m is floored at -1e30, so an empty shard
+    (l = 0) weighs 0 and nothing is NaN."""
+    M = max_reduce(m)
+    w = l * torch.exp(m - M)
+    s = sum_reduce(torch.cat([o * w[..., None], w[..., None]], dim=-1))
+    den = s[..., -1:]
+    out = s[..., :-1] / torch.where(den == 0.0, torch.ones_like(den), den)
+    return out if dtype is None else out.to(dtype)
+
+
 @on_shards("kv_write")
 def update_cache(cache: torch.Tensor, new: torch.Tensor,
                  positions: torch.Tensor, *, ring: bool = False):

@@ -27,9 +27,14 @@ distribution layer.
   moe          moe.moe_ff                   each rank's tokens through its
                                             d_ff slice of every expert
   kernel       ops.flash_attention,         the card's kernel on local
-               ops.cross_attention,         shards where that is exact,
-               ops.decode_attention         else raises; the plain version
+               ops.cross_attention          shards where that is exact,
+                                            else raises; the plain version
                                             on the CPU
+  decode       ops.decode_attention         a cache split by slots: each
+                                            rank's partial decode over its
+                                            own slots, the softmax states
+                                            combined by two all-reduces (on
+                                            either device); else "kernel"
   z_update     ops.fused_z_update           elementwise on each shard, the
                                             two sums all-reduced
   flat_chunks  optimizers.flat_chunks       each shard chunked as the
@@ -50,6 +55,7 @@ import math
 from typing import Callable, Dict
 
 import torch
+import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.parallel.sharding import local_box
@@ -345,18 +351,15 @@ def _kernel(fn, *operands, **kw):
     return kernel_on_shards(fn, *operands, **kw)
 
 
-def kernel_on_shards(fn, *operands, **kw):
-    """``fn`` on each rank's local shards of DTensor ``operands``, its
-    output wrapped back — only where that is exact: every mesh dim of size
-    1, or replicated on every operand, or splitting every operand alike on
-    the batch (dim 0), or on the heads (dim 2 of q, k and v; the K/V heads
-    split alike).  Any other placement raises with the placements named —
-    the decode cache's sequence-slot axis sharded over "model" among them,
-    whose softmax would need a combine across ranks.  Nothing is gathered
-    to run a kernel."""
-    q = operands[0]
-    name = fn.__name__
-    mesh = q.device_mesh
+def _split_roles(name, operands, skip=()):
+    """Per mesh dim, the role that splits every operand alike there:
+    "batch" (dim 0) or "heads" (dim 2 of the 4-d operands: q's heads and
+    the K/V heads alike), or None where the dim has size 1, replicates
+    every operand or is in ``skip``.  Raises with the placements named on a
+    mesh dim where neither role holds (a split head dim, a query split by
+    batch where a cache splits its slots, K/V heads replicated beside
+    split query heads), or where a role does not split evenly."""
+    mesh = operands[0].device_mesh
     if any(not isinstance(t, DTensor) or t.device_mesh != mesh
            for t in operands):
         raise ValueError(f"{name}: every operand must be a DTensor on one "
@@ -367,7 +370,7 @@ def kernel_on_shards(fn, *operands, **kw):
     split = []                       # per mesh dim: the role split, or None
     for j, n in enumerate(mesh.shape):
         ps = [t.placements[j] for t in operands]
-        if n == 1 or all(isinstance(p, Replicate) for p in ps):
+        if j in skip or n == 1 or all(isinstance(p, Replicate) for p in ps):
             split.append(None)
             continue
         role = next((r for r in ("batch", "heads") if all(
@@ -376,24 +379,105 @@ def kernel_on_shards(fn, *operands, **kw):
             None)
         if role is None:
             raise ValueError(
-                f"{name}: the kernel cannot run on these placements without "
-                f"a combine across ranks: mesh dim {j} "
-                f"({mesh.mesh_dim_names[j] if mesh.mesh_dim_names else j}, "
-                f"size {n}) has {[repr(p) for p in ps]} on "
+                f"{name}: the kernel runs on shards split alike by batch or "
+                f"by heads (a decode cache also by slots), not on mesh dim "
+                f"{j} ({mesh.mesh_dim_names[j] if mesh.mesh_dim_names else j}"
+                f", size {n}) with {[repr(p) for p in ps]} on "
                 f"{[tuple(t.shape) for t in operands]}")
         for t, rs in zip(operands, roles):
             if role in rs and t.shape[rs[role]] % n:
                 raise ValueError(f"{name}: {role} dim of {tuple(t.shape)} "
                                  f"does not split evenly over {n} ranks")
         split.append(role)
+    return split
+
+
+def kernel_on_shards(fn, *operands, **kw):
+    """``fn`` on each rank's local shards of DTensor ``operands``, its
+    output wrapped back — only where that is exact: every mesh dim of size
+    1, or replicated on every operand, or splitting every operand alike on
+    the batch (dim 0), or on the heads (dim 2 of q, k and v; the K/V heads
+    split alike).  Any other placement raises with the placements named
+    (``_split_roles``); a decode cache split by slots goes to rule
+    "decode" first.  Nothing is gathered to run a kernel."""
+    split = _split_roles(fn.__name__, operands)
+    q = operands[0]
+    mesh = q.device_mesh
     o = fn(*(t.to_local() for t in operands), **kw)
-    out_dim = roles[0]
+    out_dim = {"batch": 0, "heads": 2}
     shape = list(o.shape)
     for r, n in zip(split, mesh.shape):
         if r is not None:
             shape[out_dim[r]] *= n
     return wrap(o, mesh, [Replicate() if r is None else Shard(out_dim[r])
                           for r in split], shape)
+
+
+def _reduce_over(t: torch.Tensor, op: str, mesh, dims) -> torch.Tensor:
+    """``t`` all-reduced (``op`` "max" or "sum") over the group of each
+    mesh dim in ``dims`` in turn: over all their ranks together."""
+    for j in dims:
+        t = funcol.all_reduce(t, op, (mesh, j))
+        if isinstance(t, funcol.AsyncCollectiveTensor):
+            t = t.wait()
+    return t
+
+
+@_rule("decode")
+def _decode_over_slots(fn, q, k_cache, v_cache, positions):
+    """``ops.decode_attention`` on DTensors.  Where the caches split their
+    slot axis (dim 1) on some mesh dims, each rank decodes over its own
+    slots (``ops.decode_attention_partial``: the kernel's partial mode on
+    the card, its plain version on the CPU or meta) with the global
+    positions (whole, as in ``kv_write``) and its shard's slot offset from
+    ``local_box``, and the ranks of those mesh dims combine their softmax
+    states (``attention.combine_partials``: an all-reduce MAX of m, one
+    SUM of the packed (o w, w): B H (hd + 2) floats).  On those dims q
+    comes whole, its heads gathered where the column-parallel projection
+    split them (B H hd elements).  On the other mesh dims q is brought to
+    the caches' batch split where they split the batch, and summed where
+    it is a partial sum (an FSDP projection's); batch and head splits
+    there run as in ``kernel_on_shards``.  The output goes back in q's
+    placements, the heads by a local slice (where q was a partial sum, in
+    the placement it was brought to).  Nothing of the caches or the
+    scores moves.  Without a slot split: rule "kernel"."""
+    mesh = k_cache.device_mesh
+    slots = [j for j, p in enumerate(k_cache.placements)
+             if p == Shard(1) and mesh.shape[j] > 1]
+    if not slots:
+        return _kernel(fn, q, k_cache, v_cache, positions)
+    from repro_torch.kernels import ops        # both import this module
+    from repro_torch.models import attention
+    if not (isinstance(q, DTensor) and isinstance(v_cache, DTensor)) or any(
+            v_cache.placements[j] != Shard(1) or q.placements[j] == Shard(0)
+            for j in slots):
+        raise ValueError(
+            f"{fn.__name__}: k_cache splits its slots on mesh dims {slots}; "
+            f"the partial decode needs v_cache split alike and q not split "
+            f"by batch there, got q {getattr(q, 'placements', None)}, "
+            f"v_cache {getattr(v_cache, 'placements', None)}")
+    # the other dims first, so the heads are gathered on this rank's batch
+    mid = [p if j in slots
+           else Shard(0) if k_cache.placements[j] == Shard(0)
+           else Replicate() if p.is_partial() else p
+           for j, p in enumerate(q.placements)]
+    qw = q.redistribute(mesh, mid).redistribute(
+        mesh, [Replicate() if j in slots else p for j, p in enumerate(mid)])
+    _split_roles(fn.__name__, (qw, k_cache, v_cache), skip=slots)
+    if isinstance(positions, DTensor):
+        positions = positions.full_tensor()
+    _, k_off = local_box(k_cache.shape, mesh, k_cache.placements)
+    q_size, q_off = local_box(qw.shape, mesh, qw.placements)
+    o, m, l = ops.decode_attention_partial(
+        qw.to_local(), k_cache.to_local(), v_cache.to_local(),
+        positions[q_off[0]:q_off[0] + q_size[0]], k_off[1],
+        k_cache.shape[1])
+    o = attention.combine_partials(
+        o, m, l, lambda t: _reduce_over(t, "max", mesh, slots),
+        lambda t: _reduce_over(t, "sum", mesh, slots), dtype=q.dtype)
+    back = [w if p.is_partial() else p
+            for p, w in zip(q.placements, qw.placements)]
+    return wrap(o, mesh, qw.placements, q.shape).redistribute(mesh, back)
 
 
 @_rule("z_update")

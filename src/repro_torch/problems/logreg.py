@@ -11,8 +11,10 @@ Two engines share the data:
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.logreg_paper import LogRegConfig, scaled
@@ -51,11 +53,36 @@ class LogRegProblem(base.BatchedShardProblem):
     def _shard(self, wid: int, W: int):
         key = (wid, W)
         if key not in self._shard_cache:
-            idx, vals, b = data_mod.worker_shard_sparse(self.cfg, wid, W,
-                                                        device=self.device)
+            idx, vals, b = self._load_or_gen(wid, W)
             self._shard_cache[key] = (idx, vals.to(self.dtype),
                                       b.to(self.dtype))
         return self._shard_cache[key]
+
+    def _load_or_gen(self, wid: int, W: int):
+        """Worker ``wid``'s shard, cached on disk when ``REPRO_DATA_CACHE``
+        names a directory (off otherwise): the reference's file names and
+        ``.npz`` keys (idx int32, vals and b float32, as the reference
+        writes them), so each package reads the other's cache."""
+        cache_dir = os.environ.get("REPRO_DATA_CACHE", "")
+        if not cache_dir:
+            return data_mod.worker_shard_sparse(self.cfg, wid, W,
+                                                device=self.device)
+        c = self.cfg
+        os.makedirs(cache_dir, exist_ok=True)
+        path = os.path.join(cache_dir, f"logreg_n{c.n_samples}_d"
+                            f"{c.n_features}_p{c.density}_s{c.seed}_w{wid}"
+                            f"of{W}.npz")
+        if os.path.exists(path):
+            with np.load(path) as z:
+                return (torch.as_tensor(z["idx"].astype(np.int64)
+                                        ).to(self.device),
+                        torch.as_tensor(z["vals"]).to(self.device),
+                        torch.as_tensor(z["b"]).to(self.device))
+        idx, vals, b = data_mod.worker_shard_sparse(c, wid, W,
+                                                    device=self.device)
+        np.savez(path, idx=idx.cpu().numpy().astype(np.int32),
+                 vals=vals.cpu().numpy(), b=b.cpu().numpy())
+        return idx, vals, b
 
     def _sparse_vg(self, wid: int, n_workers: int):
         idx, vals, b = self._shard(wid, n_workers)

@@ -161,7 +161,8 @@ def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
     t_ops.cross_attention(q[:, :1], kv, kv)
     assert t_fa.LAUNCHES == {"flash_attention": 0,
                              "flash_attention_noncausal": 0}
-    assert t_dec.LAUNCHES == {"decode_attention": 0}
+    assert t_dec.LAUNCHES == {"decode_attention": 0,
+                              "decode_attention_partial": 0}
     assert t_dec._ARRIVALS == {}        # no arrival counters allocated
     # the kernels' wrappers take CUDA tensors only, and never fall back
     with pytest.raises(ValueError, match="CUDA"):

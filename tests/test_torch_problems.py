@@ -618,3 +618,59 @@ def test_admm_options_and_states_match_jax():
     assert t_admm.AdmmTrace._fields == j_admm.AdmmTrace._fields
     w = t_admm.init_worker(5)
     assert w.x.shape == (5,) and not torch.any(w.u != 0)
+
+
+# ---------------------------------------------------------------------------
+# the shard cache (REPRO_DATA_CACHE): one format for both packages
+# ---------------------------------------------------------------------------
+
+
+def test_each_package_reads_the_others_shard_cache(tmp_path, monkeypatch):
+    """With ``REPRO_DATA_CACHE`` set, logreg's shards go to ``.npz`` files
+    of the reference's names and keys.  The port reads the reference's
+    files bit for bit (idx widened to its int64) and the reference the
+    port's; the two packages write the same names, keys and dtypes (idx
+    int32, vals and b float32); and one round on a cache the other package
+    wrote equals that package's own round on it, at the slice's trace
+    tolerances.  Unset, nothing is written."""
+    from test_torch_slice import (GOLDEN_KW, assert_traces_close, jax_run,
+                                  port_run)
+    W = 4
+    ref_dir, port_dir = tmp_path / "ref", tmp_path / "port"
+    monkeypatch.setenv("REPRO_DATA_CACHE", str(ref_dir))
+    j_trace, _, j_shards = jax_run(GOLDEN_KW, W, "loop", "xla", rounds=1)
+    t_trace, _ = port_run(GOLDEN_KW, W, "loop", "torch", rounds=1)
+    monkeypatch.setenv("REPRO_DATA_CACHE", str(port_dir))
+    t_own, _ = port_run(GOLDEN_KW, W, "loop", "torch", rounds=1)
+    j_own, _, j_read = jax_run(GOLDEN_KW, W, "loop", "xla", rounds=1)
+    names = sorted(p.name for p in ref_dir.iterdir())
+    assert len(names) == W
+    assert names == sorted(p.name for p in port_dir.iterdir())
+    for name in names:
+        with np.load(ref_dir / name) as a, np.load(port_dir / name) as b:
+            assert sorted(a.files) == sorted(b.files) == ["b", "idx", "vals"]
+            assert all(a[k].dtype == b[k].dtype for k in a.files)
+            assert a["idx"].dtype == np.int32 and a["b"].dtype == np.float32
+    p = t_problems.make("logreg", device="cpu", **GOLDEN_KW)
+    monkeypatch.setenv("REPRO_DATA_CACHE", str(ref_dir))
+    for w in range(W):
+        idx, vals, b = p._load_or_gen(w, W)
+        want = j_shards[w, W]
+        assert idx.dtype == torch.int64
+        for got, ref in zip((idx, vals, b), want):
+            assert np.array_equal(got.numpy(), ref)
+        wid = f"_w{w}of{W}.npz"
+        with np.load(port_dir / next(n for n in names if n.endswith(wid))) \
+                as z:
+            for got, key in zip(j_read[w, W], ("idx", "vals", "b")):
+                assert np.array_equal(got, z[key])
+    assert_traces_close(j_trace, t_trace, W)
+    assert_traces_close(t_own, j_own, W)
+    monkeypatch.delenv("REPRO_DATA_CACHE")
+    (tmp_path / "cwd").mkdir()
+    monkeypatch.chdir(tmp_path / "cwd")
+    port_run(GOLDEN_KW, W, "loop", "torch", rounds=1)
+    assert not list((tmp_path / "cwd").iterdir())
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["cwd", "port",
+                                                          "ref"]
+    assert len(list(port_dir.iterdir())) == len(list(ref_dir.iterdir())) == W

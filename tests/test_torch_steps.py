@@ -39,8 +39,11 @@ from repro.models import model as j_model                     # noqa: E402
 from repro.optim import optimizers as j_opt                   # noqa: E402
 from repro_torch import configs as t_configs                  # noqa: E402
 from repro_torch.core import trainer as t_trainer             # noqa: E402
+from repro_torch.kernels import ops as t_ops                  # noqa: E402
+from repro_torch.launch import op_analysis as t_oa            # noqa: E402
 from repro_torch.launch import mesh as t_mesh                 # noqa: E402
 from repro_torch.launch import steps as t_steps               # noqa: E402
+from repro_torch.models import attention as t_attn           # noqa: E402
 from repro_torch.models import model as t_model               # noqa: E402
 from repro_torch.models.convert import (                      # noqa: E402
     params_from_jax, sgd_state_from_jax, state_from_jax)
@@ -298,12 +301,23 @@ REPAIRS = [((1, 4), "granite_moe_3b_a800m",
             dict(n_heads=6, head_dim=64, d_model=384), "grads", MB, S),
            ((1, 4), "zamba2_1_2b", {}, "prefill", 2, 128),
            ((2, 2), "rwkv6_1_6b", {}, "prefill", 2, S)]
+# (mesh, arch, sequence, prompt): decode over a cache whose slots split over
+# the model axis, each rank's partial decode combined across ranks (rule
+# "decode"): the hybrid's shared attention, the VLM's self-attention beside
+# its replicated image cache, mixtral's 32-slot ring wrapped (position 40),
+# and granite_8b on 2x2 at position 40 of 128 slots, so the second model
+# rank's 64 slots hold no live one
+DECODES = [((1, 4), "zamba2_1_2b", 64, 40),
+           ((1, 4), "llama3_2_vision_90b", 64, 40),
+           ((1, 4), "mixtral_8x7b", 48, 40),
+           ((2, 2), "granite_8b", 128, 40)]
 
 
-def _state(cfg, mode, n_workers, B=MB, seq_len=S):
+def _state(cfg, mode, n_workers, B=MB, seq_len=S, prompt=P):
     """A fresh (args, plain step) of ``mode`` on reduced ``cfg`` at batch
-    ``B`` and sequence ``seq_len``: weights from seed 0, numpy inputs from
-    seeds 1 and 3."""
+    ``B`` and sequence ``seq_len`` (a decode at position ``prompt``, after a
+    prefill of that many tokens): weights from seed 0, numpy inputs from
+    seeds 1 and 3 (the VLM's image embeddings from seed 2)."""
     from repro_torch.optim import optimizers as t_opt
     tok = lambda a: torch.as_tensor(a.astype(np.int32))
     gen = lambda: torch.Generator().manual_seed(0)
@@ -329,9 +343,13 @@ def _state(cfg, mode, n_workers, B=MB, seq_len=S):
     if mode == "prefill":
         return ((p, {"tokens": tok(seq)}, cache),
                 lambda p, b, c: t_model.prefill(p, cfg, b, c, last_only=True))
-    t_model.prefill(p, cfg, {"tokens": tok(seq[:, :P])}, cache)
-    return ((p, {"tokens": tok(seq[:, P:P + 1]),
-                 "positions": torch.full((B,), P, dtype=torch.int32)},
+    first = {"tokens": tok(seq[:, :prompt])}
+    if cfg.family == "vlm":
+        first["img_embeds"] = torch.as_tensor(np.random.RandomState(2).randn(
+            B, cfg.n_img_tokens, cfg.d_model).astype(np.float32))
+    t_model.prefill(p, cfg, first, cache)
+    return ((p, {"tokens": tok(seq[:, prompt:prompt + 1]),
+                 "positions": torch.full((B,), prompt, dtype=torch.int32)},
              cache),
             lambda p, b, c: t_model.decode_step(p, cfg, b, c))
 
@@ -350,10 +368,60 @@ def _loss_and_grads(cfg):
     return fn
 
 
+class _AttentionGathers(t_oa.OpCounter):
+    """An ``OpCounter`` that also keeps the largest all-gather (in elements)
+    issued while ``inside`` is set (inside ``ops.decode_attention``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.inside = False
+        self.largest = 0
+
+    def _collective(self, kind, args, outs):
+        super()._collective(kind, args, outs)
+        if self.inside and kind == "all-gather":
+            self.largest = max(self.largest, sum(t.numel() for t in outs))
+
+
+def _decode_counted(b, mesh, args):
+    """The sharded decode step under an ``_AttentionGathers`` -> (its
+    outputs, the largest all-gather inside its attention calls, the
+    all-reduces' link bytes, and the control: the largest all-gather of
+    the plain attention, which the rule replaced, on the first call's
+    DTensors)."""
+    counter = _AttentionGathers()
+    seen = []
+    real = t_ops.decode_attention
+
+    def spied(*operands):
+        seen.append(operands)
+        counter.inside = True
+        try:
+            return real(*operands)
+        finally:
+            counter.inside = False
+    lowered = t_steps.lower_step(b, mesh, args)
+    counter.add_args(lowered.args)
+    t_ops.decode_attention = spied
+    try:
+        with counter:
+            got = lowered.run()
+    finally:
+        t_ops.decode_attention = real
+    from torch.distributed.tensor.experimental import implicit_replication
+    control = _AttentionGathers()
+    control.inside = True
+    with control, implicit_replication():
+        t_attn.decode_attention(*seen[0])
+    return (got, counter.largest,
+            counter.summary()["by_type"].get("all-reduce", 0.0),
+            control.largest)
+
+
 def _rank_main(rank, world, port, shape, out):
-    """One rank: every (arch, mode) step and the mesh's ``REPAIRS``, sharded
-    on a ``shape`` mesh, then the unsharded port on the same state; rank 0
-    saves both, gathered."""
+    """One rank: every (arch, mode) step, the mesh's ``REPAIRS`` and
+    ``DECODES``, sharded on a ``shape`` mesh, then the unsharded port on the
+    same state; rank 0 saves both, gathered."""
     import pickle
     import traceback
 
@@ -365,6 +433,25 @@ def _rank_main(rank, world, port, shape, out):
     cases = [(arch, {}, mode, MB, S) for arch in ARCHS for mode in MODES]
     cases += [c[1:] for c in REPAIRS if c[0] == shape]
     res = {}
+    for _, arch, seq_len, prompt in (c for c in DECODES if c[0] == shape):
+        cfg = t_configs.reduced(t_configs.get_config(arch))
+        try:
+            b = t_steps.build_step(cfg, t_configs.ShapeConfig(
+                "s", seq_len, MB, "decode"), mesh, "decode")
+            with torch.no_grad():
+                args, _ = _state(cfg, "decode", 1, MB, seq_len, prompt)
+                got, largest, reduced, control = _decode_counted(b, mesh,
+                                                                 args)
+                args, plain = _state(cfg, "decode", 1, MB, seq_len, prompt)
+                want = plain(*args)
+            slots = args[2]["k" if "k" in args[2] else "attn_k"].shape[-3]
+            scores = MB // shape[0] * cfg.n_heads * slots
+            res["decode", arch] = (
+                1, [_f64(t) for t in leaves(got)],
+                [_f64(t) for t in leaves(want)], largest, reduced, control,
+                scores)
+        except Exception:
+            res["decode", arch] = traceback.format_exc()
     for arch, kw, mode, batch, seq_len in cases:
         cfg = t_configs.reduced(t_configs.get_config(arch), **kw)
         try:
@@ -428,6 +515,26 @@ def test_sharded_step_matches_unsharded_on_four_ranks(shape, arch, mode,
     d_ff over four, the decode cache's slots over four.  Nothing else of a
     multi-rank step is left for the chip's 1x1 mesh to show."""
     _hold_ranks(multi_rank[shape][arch, "{}", mode], shape, mode)
+
+
+@pytest.mark.parametrize("shape,arch,seq_len,prompt", DECODES,
+                         ids=[c[1] for c in DECODES])
+def test_decode_over_slot_shards_on_four_ranks(shape, arch, seq_len, prompt,
+                                               multi_rank):
+    """The cases of ``DECODES`` on a real four-rank group: each rank decodes
+    over its own slots of the cache and the ranks combine their softmax
+    states (rule "decode"), which equals the unsharded port at ``TOL``
+    (logits and every cache leaf).  Inside the attention calls no
+    all-gather is as large as a rank's float32 scores (B_local H Smax),
+    while the plain attention on the same DTensors, the path the rule
+    replaced, gathers at least that much; the combine's all-reduces ran."""
+    res = multi_rank[shape]["decode", arch]
+    assert not isinstance(res, str), res
+    *kept, largest, reduced, control, scores = res
+    _hold_ranks(tuple(kept), shape, "decode")
+    assert largest < scores, (largest, scores)
+    assert control >= scores, (control, scores)
+    assert reduced > 0
 
 
 @pytest.mark.parametrize("shape,arch,kw,mode,batch,seq_len", REPAIRS,
