@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases 1,11   # the sharded steps and dry-run
     python3 chip_smoke.py --phases 1,12   # training the other families
     python3 chip_smoke.py --phases 1,13   # decode over slot shards
+    python3 chip_smoke.py --phases 1,14   # the example twins
     python3 chip_smoke.py --src OTHER/src # time another checkout's ADMM
                                           # kernels, nothing else
 
@@ -189,10 +190,30 @@ caught):
      process and no all-gather (this machine's gloo crashes on the
      functional all-gather of CUDA tensors, so a whole sharded decode
      step cannot run here; the four-rank CPU test runs it);
+  14. the README's example entry points, ``examples/*_torch.py``: (a)
+     the four first-order twins (quickstart, cost_aware, elastic_faults,
+     double_ml) with their problems in float64 on the card and on the CPU,
+     and as written (float32) on the card, in six processes of their
+     own beside the LM twins, the float64 outputs and records equal
+     (residuals at F64_RTOL; inner counts, respawns, clock, bill, the
+     autoscaler's decisions, the provider's counts; double_ml's theta-hat
+     at DML_THETA_RTOL), the float32 outputs printed; the serve twin
+     (mixtral_8x7b's tiny preset, and rwkv6_1_6b) with the CPU's sample
+     ids; the train twin's --quick against the CPU, and its default (the
+     100m preset) 4 rounds straight against 2 and --resume 2, bit for
+     bit; (b) alone on the card after (a), the examples' regimes on
+     the paper's instance at W = 64 (TWIN_REGIMES: failures and
+     lifetimes, replicated stragglers, async_, rescale 64 -> 32 -> 64 cold
+     and warm, the per-job autoscaler, a checkpoint restored into a new
+     scheduler) on the kernel path, each against the plain sparse path at
+     phase 4's witness limits, with its walls, launches and peak memory;
+     the respawned workers' regenerated shards and the 32-worker fleet's
+     re-staged shards equal to those they replace; the restored run bit
+     for bit against a straight run;
 then the kernels line {"kernels": [...]} (when phases 2, 4, 5, 6, 7, 10
 and 13 ran; each entry names the kernel's design in "body" and its
-launches on each main path in "launches_by_phase", phase 9's, 11's and
-12's among them when they ran; the flash kernel's causal=False
+launches on each main path in "launches_by_phase", phase 9's, 11's,
+12's and 14's among them when they ran; the flash kernel's causal=False
 instantiation and the decode kernel's partial mode are entries of their
 own) and the last line
 {"ok": true, "device": {...}}.
@@ -206,8 +227,10 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -4169,6 +4192,632 @@ def phase_slot_shards(torch, dec, attention, card):
     return r, slot_shards_ranks(torch, card)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the README's example entry points (examples/*_torch.py)
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ROOT / "examples"
+FIRST_ORDER_TWINS = ("quickstart", "cost_aware", "elastic_faults",
+                     "double_ml")
+# printed numbers: "-1.5", "0.0180", "2e-05"
+PRINTED_NUMBER = r"[-+]?\d+(?:\.\d+)?(?:e[-+]?\d+)?"
+# (a) the serve twin's default (mixtral_8x7b's tiny preset) and its
+# docstring's other family; the train twin's --quick on the card against
+# the CPU, then its default (the 100m preset) straight against a resume
+SERVE_TWIN_ARGV = ([], ["--arch", "rwkv6_1_6b"])
+TRAIN_TWIN_QUICK = ["--quick", "--steps", "3"]
+# the train twin's --quick (qwen2_7b tiny, seq 128, no prox) in float32 is
+# held card against CPU as phase 9a holds bf16: leaves by relative L2 gap
+# (TRAIN_BF16_L2), the metrics at the float32 limits.  Elementwise at
+# TRAIN_TOL it cannot be held: Adam turns a near-zero gradient's rounding
+# into an lr-sized step.  On the CPU the port against the reference reads
+# 1.02 x TRAIN_TOL on x, and the port against itself with x nudged one ulp
+# 30 x; the card read 6.96 x on an "NVIDIA H100 80GB HBM3, 700.00 W"
+# (b) the examples' regimes (elastic_faults.py, cost_aware.py) on the
+# paper's instance, scaled from their W = 8 to W = 64: the batched engine
+# with kernel="cuda", each against the same regime on the plain sparse path
+# (kernel="torch") at phase 4's witness limits.  Each driver: "rounds"
+# steps TWIN_ROUNDS rounds (the autoscaler, from 32 workers, acting
+# between them, with a window and cooldown of one round); "async"
+# TWIN_ASYNC_UPDATES z-updates, one sweep of the 64 workers at S = 4;
+# "rescale" a round at 64, 32 and 64 again; "checkpoint" saves (z, x, u,
+# rho) after TWIN_CKPT_ROUND rounds and restores them into a new scheduler
+# for the last round, against a straight run.  The lifetime is
+# elastic_faults.py's own: a worker respawns at its deadline less
+# respawn_before_deadline_s (30 s), 30 s after it came up, and a round here
+# takes tens of sim seconds (t_inner 6e-5 s x 9 375 rows = 0.57 s a FISTA
+# step, 29 steps or more on the slowest lane of a round), so every worker
+# passes that point by the start of round 3 (it respawned all 64 at round
+# 2 on an "NVIDIA H100 80GB HBM3, 700.00 W", beside 7 failures)
+TWIN_W = 64
+TWIN_ROUNDS = 3
+TWIN_ASYNC_UPDATES = TWIN_W // 4
+TWIN_CKPT_ROUND = 2
+TWIN_LIFETIME_S = 60.0
+TWIN_REGIMES = {
+    "sync + failures/lifetimes": ("rounds", dict(
+        pool=dict(seed=1, fail_rate_per_round=0.04,
+                  lifetime_s=TWIN_LIFETIME_S))),
+    "replicated r=2 (coded)": ("rounds", dict(
+        mode="replicated", replication=2,
+        pool=dict(seed=2, straggler_frac=0.25, straggler_slowdown=4.0))),
+    "async S=4, tau=4": ("async", dict(
+        mode="async_", async_batch=4, staleness_bound=4, pool=dict(seed=3))),
+    "rescale 64->32->64 cold": ("rescale", dict(
+        pool=dict(seed=4, provider=dict(enabled=False)))),
+    "rescale 64->32->64 warm": ("rescale", dict(
+        pool=dict(seed=4, provider=dict(enabled=True)))),
+    "warm + autoscale(eff) 32..64": ("rounds", dict(
+        n_workers=TWIN_W // 2,
+        autoscale=dict(policy="target_efficiency", min_workers=TWIN_W // 2,
+                       max_workers=TWIN_W, cooldown_rounds=1, window=1),
+        pool=dict(seed=0, provider=dict(enabled=True)))),
+    "checkpoint at round 2": ("checkpoint", dict(pool=dict(seed=5))),
+}
+
+
+def load_twin(name: str):
+    """``examples/<name>_torch.py`` as a fresh module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"twin_{name}", EXAMPLES / f"{name}_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def sched_record(s) -> dict:
+    """What two runs of one first-order example must share: per round the
+    residuals, inner counts, clock and bill; respawns, the autoscaler's
+    decisions, the provider's counts and the pool's start statistics."""
+    prov = s.pool.provider
+    return dict(
+        rows=[(m.r_norm, m.s_norm, m.rho) for m in s.history],
+        inner=[m.inner_iters.tolist() for m in s.history],
+        sim=[m.sim_time for m in s.history],
+        cost=[m.cost_usd for m in s.history],
+        respawns=s.n_respawns, n_workers=s.cfg.n_workers,
+        decisions=([list(d) for d in s.autoscaler.decisions]
+                   if s.autoscaler else []),
+        provider=(None if prov is None else [
+            prov.stats.warm_hits, prov.stats.cold_misses,
+            prov.stats.evictions, prov.stats.expirations]),
+        warm_frac=s.pool.warm_frac(),
+        mean_start=s.pool.mean_start_latency())
+
+
+def run_first_order_twin(rt, name: str, device: str, float64: bool):
+    """``main`` of a first-order twin on ``device`` (its problem in float64
+    when asked), printing into a buffer; returns (output, record, wall):
+    the record of every scheduler its runs and builds made, or for
+    double_ml the estimate and the DAG's stage summaries."""
+    mod = load_twin(name)
+    scheds, dags = [], []
+    if name == "double_ml":
+        submit = mod.submit_dag
+
+        def submit_dag(dag, **kw):
+            dags.append(submit(float64_dag(rt, dag) if float64 else dag,
+                               **kw))
+            return dags[-1]
+        mod.submit_dag = submit_dag
+    else:
+        run_, build_ = mod.run, getattr(mod, "build", None)
+
+        def run(spec, **kw):
+            if float64 and name == "quickstart":
+                spec = dataclasses.replace(spec, problem_kwargs=dict(
+                    spec.problem_kwargs, dtype="float64"))
+            res = run_(spec, **kw)
+            scheds.append(res.scheduler)
+            return res
+        mod.run = run
+        if build_ is not None:
+            def build(spec, **kw):
+                p, s = build_(spec, **kw)
+                scheds.append(s)
+                return p, s
+            mod.build = build
+        if float64 and name != "quickstart":
+            mod.PROBLEM_KW = dict(mod.PROBLEM_KW, dtype="float64")
+    _, text, wall = captured(mod.main, device)
+    if dags:
+        h = dags[0]
+        record = dict(theta=float(h.stage_results["combine"].z[0]),
+                      stages=h.summary()["stages"], latency=h.latency_s,
+                      cost=h.total_cost_usd)
+    else:
+        record = [sched_record(s) for s in scheds]
+    # as JSON holds it: the CPU's record comes through a file
+    record = json.loads(json.dumps(record, default=_plain))
+    return text, record, wall
+
+
+def _plain(o):
+    return o.item() if hasattr(o, "item") else str(o)
+
+
+def twins_run(device: str, dtype: str, names: str, out_path: str):
+    """The first-order twins ``names`` (comma-separated) on ``device`` with
+    their problems in ``dtype`` (float64, or float32 as written), written
+    as JSON to ``out_path``.  Phase 14 runs these side by side, each in a
+    process of its own (TWIN_PROCESSES): float64 on the card and on the
+    CPU, which it holds against each other, and float32 on the card, whose
+    output it prints."""
+    import torch
+    sys.path.insert(0, str(SRC))
+    from repro_torch import runtime as rt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # one thread on the CPU: with two, under load, a float64 quickstart
+    # read 3.9e-6 off in s_norm in 3 of 33 runs (a shard generated with
+    # other bits; ROADMAP, Queue 3); with one, every run was bit for bit
+    torch.set_num_threads(1 if device == "cpu" else 2)
+    out = {}
+    for name in names.split(","):
+        text, record, wall = run_first_order_twin(rt, name, device,
+                                                  dtype == "float64")
+        out[name] = dict(out=text, record=record, wall=wall)
+    Path(out_path).write_text(json.dumps(out))
+
+
+def printed_unit(token: str) -> float:
+    """One unit in the last decimal place ``token`` was printed with."""
+    mantissa = token.split("e")[0]
+    return 10.0 ** -len(mantissa.split(".")[1]) if "." in mantissa else 1.0
+
+
+def hold_printed(name, got: str, want: str, rtol: float):
+    """Line for line: the text equal with the numbers masked, each number
+    within ``rtol`` relative or one unit of its last printed digit (two
+    runs a hair apart can round to either side of a digit)."""
+    import re
+    num = re.compile(PRINTED_NUMBER)
+    g_lines, w_lines = got.splitlines(), want.splitlines()
+    if len(g_lines) != len(w_lines):
+        fail(f"[14a] {name}: {len(g_lines)} lines printed against "
+             f"{len(w_lines)}")
+    for g, w in zip(g_lines, w_lines):
+        gn, wn = num.findall(g), num.findall(w)
+        if num.sub("#", g) != num.sub("#", w) or any(
+                abs(float(a) - float(b)) > max(rtol * abs(float(b)),
+                                               printed_unit(b) * 1.000001)
+                for a, b in zip(gn, wn)):
+            fail(f"[14a] {name}: the card printed {g!r}, the CPU {w!r}")
+
+
+def hold_twin_records(name, card, cpu):
+    """The card's float64 run of a first-order twin against the CPU's:
+    residuals at F64_RTOL, and inner counts, respawns, clock, bill,
+    autoscaler decisions and provider counts equal (double_ml: theta-hat
+    at DML_THETA_RTOL, its stage summaries equal).  Returns the worst
+    relative residual gap."""
+    if name == "double_ml":
+        gap = abs(card["theta"] - cpu["theta"]) / abs(cpu["theta"])
+        if not gap <= DML_THETA_RTOL or card["stages"] != cpu["stages"]:
+            fail(f"[14a] double_ml: theta-hat {card['theta']!r} vs "
+                 f"{cpu['theta']!r} or the stage summaries differ")
+        return gap
+    if len(card) != len(cpu):
+        fail(f"[14a] {name}: {len(card)} schedulers against {len(cpu)}")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        worst = max(worst, hold(f"[14a] {name} run {i}", a["rows"],
+                                b["rows"], F64_RTOL))
+        for key in ("inner", "sim", "cost", "respawns", "n_workers",
+                    "decisions", "provider", "warm_frac", "mean_start"):
+            if a[key] != b[key]:
+                fail(f"[14a] {name} run {i}: {key} {a[key]!r} on the card, "
+                     f"{b[key]!r} on the CPU")
+    return worst
+
+
+def say_output(tag, name, text):
+    for line in text.splitlines():
+        say(f"{tag} {name} | {line}")
+
+
+@contextlib.contextmanager
+def drawn_on_cpu(torch, model, serve):
+    """Parameters and prompts drawn on the CPU from fixed seeds and moved
+    to the run's device, so a card run and a CPU run start alike."""
+    init, prompt = model.init_params, serve.synthetic_prompt
+
+    def init_params(cfg, *, generator, device="cuda"):
+        return tree_to(init(cfg, generator=torch.Generator().manual_seed(0),
+                            device="cpu"), device)
+
+    def synthetic_prompt(cfg, batch, prompt_len, seed, device):
+        return tree_to(prompt(cfg, batch, prompt_len, seed,
+                              torch.device("cpu")), device)
+    model.init_params, serve.synthetic_prompt = init_params, synthetic_prompt
+    try:
+        yield
+    finally:
+        model.init_params, serve.synthetic_prompt = init, prompt
+
+
+def captured(fn, *args):
+    """(fn(*args), what it printed, its wall)."""
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        ret = fn(*args)
+    return ret, buf.getvalue(), time.time() - t0
+
+
+def phase_twins_lm(torch, configs, model, serve, trainer, tree, fa, dec):
+    """(a) the serve twin (default and rwkv6) and the train twin on the
+    card against the CPU; then the train twin's default straight against a
+    resume.  Returns the attention launches of the serve twin's card
+    runs."""
+    twin = load_twin("serve_model")
+    launches = {}
+    for argv in SERVE_TWIN_ARGV:
+        with drawn_on_cpu(torch, model, serve):
+            cpu, _, _ = captured(twin.main, argv + ["--device", "cpu"])
+            fa.reset_launches()
+            dec.reset_launches()
+            card, text, wall = captured(twin.main, argv)
+        got = read_launches(fa, dec)
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        say_output("[14a]", "serve_model_torch " + " ".join(argv), text)
+        if not torch.equal(card, cpu):
+            fail(f"[14a] serve_model_torch {argv}: the card's sample ids "
+                 f"differ from the CPU's")
+        say(f"[14a] serve_model_torch {' '.join(argv) or '(default)'}: "
+            f"{card.shape[0]} x {card.shape[1]} ids equal to the CPU's; "
+            f"attention launches {got}; {wall:.1f} s")
+
+    twin = load_twin("train_admm_lm")
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        make = trainer.make_round_step
+        trace = []
+
+        def make_round_step(cfg, ccfg, _make=make, _trace=trace):
+            step = _make(cfg, ccfg)
+
+            def run(state, batch):
+                state, m = step(state, batch)
+                _trace.append({n: float(v) for n, v in m.items()})
+                return state, m
+            return run
+        trainer.make_round_step = make_round_step
+        try:
+            with drawn_on_cpu(torch, model, serve), \
+                    tempfile.TemporaryDirectory(dir=scratch) as d:
+                state, text, wall = captured(
+                    twin.main, TRAIN_TWIN_QUICK + ["--checkpoint-dir", d]
+                    + (["--device", "cpu"] if dev == "cpu" else []))
+        finally:
+            trainer.make_round_step = make
+        runs[dev] = (state, trace, text, wall)
+    (card, tc, text, wall), (cpu, tp, _, _) = runs["cuda"], runs["cpu"]
+    say_output("[14a]", "train_admm_lm_torch --quick", text)
+    # held as phase 9a holds bf16: each leaf by its relative L2 gap (at
+    # TRAIN_BF16_L2), the metrics at the float32 limits (TRAIN_TWIN_QUICK)
+    elementwise = train_gaps(torch, tree, card, cpu, tc, tp, "float32")
+    gaps = (train_gaps(torch, tree, card, cpu, tc, tp, "bfloat16")[0],
+            elementwise[1])
+    if over_limit(gaps, 1.0) or len(tc) != len(tp):
+        fail(f"[14a] train_admm_lm_torch --quick: the card strays from the "
+             f"CPU: {fmt_gaps(gaps)} (multiples of phase 9a's limits)")
+    say(f"[14a] train_admm_lm_torch --quick --steps 3: card vs CPU, leaves "
+        f"by relative L2 and metrics, in multiples of phase 9a's limits "
+        f"{fmt_gaps(gaps)} (elementwise at the float32 limits "
+        f"{fmt_gaps(elementwise[:1])}); {wall:.1f} s on the card")
+
+    with tempfile.TemporaryDirectory(dir=scratch) as d1, \
+            tempfile.TemporaryDirectory(dir=scratch) as d2:
+        straight, text, t_straight = captured(
+            twin.main, ["--steps", "4", "--checkpoint-dir", d1])
+        say_output("[14a]", "train_admm_lm_torch (straight)", text)
+        _, _, t_first = captured(twin.main,
+                                 ["--steps", "2", "--checkpoint-dir", d2])
+        resumed, text, t_resume = captured(
+            twin.main, ["--steps", "4", "--checkpoint-dir", d2])
+        say_output("[14a]", "train_admm_lm_torch (resumed)", text)
+    ls, lr = tree.leaves(straight), tree.leaves(resumed)
+    diff = [i for i, (a, b) in enumerate(zip(ls, lr))
+            if a.dtype != b.dtype or not torch.equal(a, b)]
+    if diff or len(ls) != len(lr) or "resumed from step 2" not in text:
+        fail(f"[14a] train_admm_lm_torch: the resume differs from the "
+             f"straight run at leaves {diff}")
+    say(f"[14a] train_admm_lm_torch (100m preset): 4 rounds straight "
+        f"({t_straight:.1f} s) equal 2 + --resume 2 ({t_first + t_resume:.1f}"
+        f" s, checkpoint I/O included) bit for bit over {len(ls)} leaves")
+    return launches
+
+
+def twin_config(rt, AdmmOptions, fields: dict, kernel: str):
+    """A regime of TWIN_REGIMES as the port's SchedulerConfig."""
+    fields = dict(fields)
+    fields.setdefault("n_workers", TWIN_W)
+    pool = dict(fields.pop("pool", {}))
+    if "provider" in pool:
+        pool["provider"] = rt.ProviderConfig(**pool["provider"])
+    if "autoscale" in fields:
+        fields["autoscale"] = rt.AutoscaleConfig(**fields["autoscale"])
+    return rt.SchedulerConfig(engine="batched",
+                              kernel=kernel, admm=AdmmOptions(max_iters=40),
+                              pool=rt.PoolConfig(**pool), **fields)
+
+
+def trace_rows(sched):
+    return [{"r_norm": m.r_norm, "s_norm": m.s_norm, "rho": m.rho,
+             "inner_mean": float(m.inner_iters.mean())}
+            for m in sched.history]
+
+
+def drive_regime(torch, api, rt, ck, AdmmOptions, problem, drive, fields,
+                 kernel):
+    """One regime of TWIN_REGIMES on ``problem`` with ``kernel``: returns
+    (the scheduler whose rows are held, each step's wall, the slots that
+    respawned as (logical wid, W), notes).  The checkpoint regime's notes
+    hold its restored run."""
+    scfg = twin_config(rt, AdmmOptions, fields, kernel)
+
+    def build():
+        _, s = api.build(api.ExperimentSpec(
+            problem="logreg", problem_kwargs=PAPER_KW, scheduler=scfg),
+            problem=problem)
+        respawn = s._maybe_respawn
+
+        def spy(wid):
+            extra = respawn(wid)
+            if extra:
+                respawned.add((s._logical(wid), s.n_logical))
+            return extra
+        s._maybe_respawn = spy
+        return s
+
+    respawned, walls, notes = set(), [], {}
+
+    def timed(fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+        return out
+
+    sched = build()
+    if drive == "async":
+        t_last = [time.time()]
+
+        def on_round(m):
+            torch.cuda.synchronize()
+            walls.append(time.time() - t_last[0])
+            t_last[0] = time.time()
+        sched.solve(max_rounds=TWIN_ASYNC_UPDATES, on_round=on_round)
+    elif drive == "rescale":
+        timed(sched.step)
+        sched.rescale(TWIN_W // 2)
+        timed(sched.step)
+        t0 = sched.sim_time
+        sched.rescale(TWIN_W)
+        notes["grow_stall_s"] = sched.sim_time - t0
+        timed(sched.step)
+    else:
+        for _ in range(TWIN_ROUNDS):
+            timed(sched.step)
+    if drive == "checkpoint" and kernel == "cuda":
+        import numpy as np
+        first = build()
+        for _ in range(TWIN_CKPT_ROUND):
+            timed(first.step)
+        state = {"z": first.z, "x": first.x, "u": first.u,
+                 "rho": np.float32(first.rho)}
+        (ROOT / "build").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+            ck.save(state, d, first.k, {"round": first.k})
+            second = build()
+            restored, meta = ck.restore(state, d)
+        second.z, second.x, second.u = (restored["z"], restored["x"],
+                                        restored["u"])
+        second.rho = float(restored["rho"])
+        second.k = meta["round"]
+        for _ in range(TWIN_ROUNDS - TWIN_CKPT_ROUND):
+            timed(second.step)
+        notes["restored"] = second
+    return sched, walls, respawned, notes
+
+
+def check_shards(torch, data_mod, base, problem, keys):
+    """Each (wid, W) in ``keys``: the shard generated anew equal to the one
+    the run solved (sparse) and to its lane of the staged dense batch."""
+    for wid, W in sorted(keys):
+        fresh = data_mod.worker_shard_sparse(problem.cfg, wid, W,
+                                             device="cuda")
+        held = problem._shard_cache[(wid, W)]
+        (A, b), _ = problem._kernel_batch_cache[W]
+        n = fresh[0].shape[0]
+        dense = base.densify_sparse_rows(fresh[0], fresh[1], A.shape[-1])
+        if not (all(torch.equal(f, h) for f, h in zip(fresh, held))
+                and torch.equal(A[wid, :n], dense)
+                and torch.equal(b[wid, :n], fresh[2])):
+            fail(f"[14b] worker {wid} of {W}: its regenerated shard differs "
+                 f"from the one it replaced")
+        del dense
+
+
+def check_restaged(torch, problem, wide, narrow):
+    """The shards of ``narrow`` workers against pairs of ``wide`` workers'
+    (narrow = wide / 2): each leaf of the sparse shards and each lane of
+    the staged dense batch equal to the two rows it joins."""
+    (A_w, b_w), _ = problem._kernel_batch_cache[wide]
+    (A_n, b_n), _ = problem._kernel_batch_cache[narrow]
+    for w in range(narrow):
+        lo, hi = (problem._shard_cache[(2 * w + j, wide)] for j in (0, 1))
+        got = problem._shard_cache[(w, narrow)]
+        n0, n1 = lo[0].shape[0], hi[0].shape[0]
+        if not (all(torch.equal(g, torch.cat([a, c]))
+                    for g, a, c in zip(got, lo, hi))
+                and torch.equal(A_n[w, :n0], A_w[2 * w, :n0])
+                and torch.equal(A_n[w, n0:n0 + n1], A_w[2 * w + 1, :n1])
+                and torch.equal(b_n[w, :n0 + n1],
+                                torch.cat([b_w[2 * w, :n0],
+                                           b_w[2 * w + 1, :n1]]))):
+            fail(f"[14b] worker {w} of {narrow}: its re-staged shard is not "
+                 f"workers {2 * w} and {2 * w + 1} of {wide}")
+
+
+def phase_twins_paper(torch, api, problems, rt, AdmmOptions, lv, st, rows):
+    """(b) TWIN_REGIMES on the paper's instance: each regime on the kernel
+    path held against the plain sparse path at phase 4's witness limits,
+    with its walls, launches and peak memory; respawned workers' shards
+    and the re-staged shards of the 32-worker fleet against the ones they
+    replaced; the restored run bit for bit against a straight one.
+    ``rows`` are phase 4's sparse shards when it ran.  Returns the margin
+    and z-update launches."""
+    from repro_torch import checkpoint as ck
+    from repro_torch.data import logreg as data_mod
+    from repro_torch.problems import base
+    t0 = time.time()
+    problem = problems.make("logreg", device="cuda", **PAPER_KW)
+    problem._shard_cache.update(rows)
+    problem.kernel_batch_shards(TWIN_W)
+    torch.cuda.synchronize()
+    say(f"[14b] the paper's instance at W={TWIN_W}, its shards "
+        f"{'from phase 4' if rows else 'generated here'}, staged in "
+        f"{time.time() - t0:.1f} s")
+    totals = {"logistic": 0, "soft_threshold": 0}
+    for name, (drive, fields) in TWIN_REGIMES.items():
+        torch.cuda.reset_peak_memory_stats()
+        lv.reset_launches()
+        st.reset_launches()
+        sched, walls, respawned, notes = drive_regime(
+            torch, api, rt, ck, AdmmOptions, problem, drive, fields, "cuda")
+        n_margin, n_z = lv.LAUNCHES["logistic"], st.LAUNCHES["soft_threshold"]
+        totals["logistic"] += n_margin
+        totals["soft_threshold"] += n_z
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        witness, w_walls, _, _ = drive_regime(
+            torch, api, rt, ck, AdmmOptions, problem, drive, fields, "torch")
+        rel, inner = witness_gaps(trace_rows(sched), trace_rows(witness))
+        if not (rel <= WITNESS_RTOL and inner <= WITNESS_INNER):
+            fail(f"[14b] {name}: the kernel path strays from the plain "
+                 f"path ({rel:.3e} relative, {inner:.3f} inner_mean)")
+        batched = drive != "async"
+        if n_z < 1 or (batched and n_margin < 1):
+            fail(f"[14b] {name}: {n_margin} margin and {n_z} z-update "
+                 f"launches")
+        if peak >= PEAK_LIMIT_GB:
+            fail(f"[14b] {name}: peak device memory {peak:.2f} GB")
+        extra = ""
+        if respawned:
+            check_shards(torch, data_mod, base, problem, respawned)
+            extra += (f"; {sched.n_respawns} respawns, the shards of "
+                      f"{len(respawned)} workers generated anew equal "
+                      f"(sparse and staged)")
+        if drive == "rescale":
+            check_restaged(torch, problem, TWIN_W, TWIN_W // 2)
+            extra += (f"; grow-back stall {notes['grow_stall_s']:.2f} s "
+                      f"(sim); the {TWIN_W // 2} re-staged shards equal the "
+                      f"{TWIN_W} they join")
+        if sched.autoscaler is not None:
+            eff = [m.t_comp.mean() / m.round_wall_s for m in sched.history]
+            extra += (f"; efficiency by round "
+                      f"{', '.join(f'{e:.3f}' for e in eff)}, autoscaler "
+                      f"decisions {sched.autoscaler.decisions}")
+        if drive == "checkpoint":
+            second = notes["restored"]
+            same = (torch.equal(second.z, sched.z)
+                    and torch.equal(second.x, sched.x)
+                    and torch.equal(second.u, sched.u)
+                    and second.rho == sched.rho
+                    and [(m.r_norm, m.s_norm) for m in second.history]
+                    == [(m.r_norm, m.s_norm)
+                        for m in sched.history[TWIN_CKPT_ROUND:]])
+            if not same:
+                fail(f"[14b] {name}: the restored run differs from the "
+                     f"straight run")
+            extra += (f"; restored at round {TWIN_CKPT_ROUND} into a new "
+                      f"scheduler: z, x, u, rho and round "
+                      f"{TWIN_CKPT_ROUND + 1}'s r/s bit for bit")
+        if drive == "async":
+            extra += f"; {sched.n_respawns} respawns"
+        say(f"[14b] {name}: walls {', '.join(f'{w:.2f}' for w in walls)} s "
+            f"(plain path {', '.join(f'{w:.2f}' for w in w_walls)}); "
+            f"launches margin {n_margin}, z-update {n_z}; peak "
+            f"{peak:.2f} GB; vs the plain path {rel:.3e} relative, "
+            f"inner_mean {inner:.3f} (limits {WITNESS_RTOL:g}, "
+            f"{WITNESS_INNER:g}); r_norm {sched.history[-1].r_norm:.6g}, "
+            f"W {sched.cfg.n_workers}, sim {sched.sim_time:.1f} s, "
+            f"${sched.meter.total_usd():.4f}{extra}")
+    return totals
+
+
+# phase 14's processes for the first-order twins: (device, problem dtype,
+# twins), each set split in two of about equal wall
+TWIN_PROCESSES = tuple((device, dtype, names)
+                       for device, dtype in (("cuda", "float64"),
+                                             ("cpu", "float64"),
+                                             ("cuda", "float32"))
+                       for names in ("quickstart,cost_aware",
+                                     "elastic_faults,double_ml"))
+
+
+def phase_twins(torch, api, problems, rt, AdmmOptions, configs, model, serve,
+                trainer, tree, lv, st, fa, dec, rows):
+    """Phase 14: (a) the six example twins, (b) the examples' regimes at
+    the paper's size.  The first-order twins run in three processes of
+    their own (TWIN_PROCESSES) while this one runs the LM twins; (b) runs
+    after they end, alone on the card.  Returns {kernel: launches}."""
+    t0 = time.time()
+    procs, files, runs = {}, {}, {}
+    try:
+        for key in TWIN_PROCESSES:
+            f = tempfile.NamedTemporaryFile(suffix=".json", delete=False)
+            f.close()
+            files[key] = Path(f.name)
+            # the CPU's processes see no card
+            env = dict(os.environ, **({"CUDA_VISIBLE_DEVICES": ""}
+                                      if key[0] == "cpu" else {}))
+            procs[key] = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--twins",
+                 *key, f.name], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True, env=env)
+        launches = phase_twins_lm(torch, configs, model, serve, trainer,
+                                  tree, fa, dec)
+        for key, proc in procs.items():
+            log, _ = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                fail(f"[14a] the first-order twins {key} failed:\n{log}")
+            runs.setdefault(key[:2], {}).update(
+                json.loads(files[key].read_text()))
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in files.values():
+            f.unlink(missing_ok=True)
+    for name in FIRST_ORDER_TWINS:
+        run = runs["cuda", "float32"][name]
+        say_output("[14a]", f"{name}_torch", run["out"])
+        say(f"[14a] {name}_torch as written (float32) on the card: "
+            f"{run['wall']:.1f} s")
+    for name in FIRST_ORDER_TWINS:
+        card, cpu = runs["cuda", "float64"][name], runs["cpu", "float64"][name]
+        rtol = DML_THETA_RTOL if name == "double_ml" else F64_RTOL
+        hold_printed(name, card["out"], cpu["out"], rtol)
+        gap = hold_twin_records(name, card["record"], cpu["record"])
+        say(f"[14a] {name}_torch in float64: the card's output and "
+            f"records equal the CPU's (residuals {gap:.2e} apart, rtol "
+            f"{rtol:g}; inner counts, respawns, clock, bill, autoscaler "
+            f"and provider equal); {card['wall']:.1f} s on the card, "
+            f"{cpu['wall']:.1f} s on the CPU")
+    say(f"[14a] wall {time.time() - t0:.1f} s")
+    t1 = time.time()
+    launches.update(phase_twins_paper(torch, api, problems, rt, AdmmOptions,
+                                      lv, st, rows))
+    say(f"[14b] wall {time.time() - t1:.1f} s")
+    return launches
+
+
 def time_admm_kernels(torch, src: Path):
     """The margin kernel's median time per call (logistic, paper shape)
     and the z-update's device time per call in a CUDA graph (D = 10 000
@@ -4203,21 +4852,30 @@ def time_admm_kernels(torch, src: Path):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--src", type=Path,
                     help="run no phase: time the margin kernel and the "
                          "z-update of the port under this src directory "
                          "and print one JSON line (see time_admm_kernels)")
+    ap.add_argument("--twins", nargs=4,
+                    metavar=("DEVICE", "DTYPE", "NAMES", "JSON"),
+                    help="run no phase: the first-order example twins NAMES "
+                         "(comma-separated) on DEVICE (cuda or cpu) with "
+                         "their problems in DTYPE (float32 or float64), "
+                         "written to JSON (phase 14 starts these itself)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
-    if not phases <= set(range(1, 14)):
-        fail(f"--phases takes phases 1 to 13, got {sorted(phases)}")
+    if not phases <= set(range(1, 15)):
+        fail(f"--phases takes phases 1 to 14, got {sorted(phases)}")
 
     if not (SRC / "repro_torch" / "api.py").is_file():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
              f"repository")
     import torch
+    if args.twins is not None:
+        twins_run(*args.twins)
+        return
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this needs a CUDA card")
     if args.src is not None:
@@ -4284,7 +4942,7 @@ def main(argv=None):
     solo, solo_launches = {}, {}
     # phase 4's sparse rows, which phase 8 reads when phase 4 ran
     paper_rows = {}
-    for phase in (4, 5, 6, 7, 8, 9, 10, 11, 12, 13):
+    for phase in (4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14):
         if phase not in phases:
             continue
         gc.collect()
@@ -4315,7 +4973,16 @@ def main(argv=None):
         elif phase == 8:
             phase_newton(torch, api, problems, rt, AdmmOptions, lv, st,
                          paper_rows)
+            if 14 not in phases:
+                paper_rows.clear()
+        elif phase == 14:
+            got = phase_twins(torch, api, problems, rt, AdmmOptions,
+                              configs, model, serve, trainer, tree, lv, st,
+                              fa, dec, paper_rows)
             paper_rows.clear()
+            for k, n in got.items():
+                if n:
+                    by_phase[k]["14"] = n
         elif phase == 11:
             got = phase_sharded(torch, configs, model, trainer, lm_data,
                                 tree, ops, fa, dec, st, card)

@@ -86,6 +86,15 @@ def worker_shard_sparse(cfg: LogRegConfig, w: int, n_workers: int,
     return tuple(torch.cat(p) for p in zip(*parts))
 
 
+def worker_shard(cfg: LogRegConfig, w: int, n_workers: int, device=None):
+    """Worker w's rows dense: the rows of ``worker_shard_sparse`` scattered
+    into a (rows, d) float32 A, zero off the selected indices, and b."""
+    idx, vals, b = worker_shard_sparse(cfg, w, n_workers, device=device)
+    A = torch.zeros((idx.shape[0], cfg.n_features), dtype=torch.float32,
+                    device=idx.device)
+    return A.scatter_(1, idx, vals), b
+
+
 def add_at(out: torch.Tensor, index: torch.Tensor,
            src: torch.Tensor) -> torch.Tensor:
     """``out.view(-1)[index] += src`` over flat indices, duplicates summed
@@ -132,3 +141,13 @@ def logistic_value_and_grad(A: torch.Tensor, b: torch.Tensor):
         grad = A.T @ (-b * torch.sigmoid(margins))
         return f, grad
     return vg
+
+
+def full_objective(shards, x: torch.Tensor, lam1: float) -> torch.Tensor:
+    """phi(x) = total logistic loss + lam1*||x||_1 over a list of dense
+    (A, b) shards."""
+    total = lam1 * torch.sum(torch.abs(x))
+    for A, b in shards:
+        f, _ = logistic_value_and_grad(A, b)(x)
+        total = total + f
+    return total

@@ -115,6 +115,14 @@ def fused_svm_vjp(A, b, x, *, gamma: float, mask=None):
     return _margin(A, b, x, mask, loss="hinge", gamma=float(gamma))
 
 
+def logistic_value_and_grad(A, b):
+    """Drop-in for ``data.logreg.logistic_value_and_grad`` that routes a
+    dense shard through the margin kernel: x -> (loss, grad)."""
+    def vg(x):
+        return fused_logistic_vjp(A, b, x)
+    return vg
+
+
 def fused_softmax_vjp(A, y, x, *, n_classes: int, mask=None):
     """Multinomial value+grad with the margin wrappers' contract: A (N, D),
     y (N,) int labels, x the flattened (D·C,) variable, an optional row

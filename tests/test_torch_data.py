@@ -126,6 +126,59 @@ def test_worker_shard_sparse_matches_jax(n, d, p, W, w):
                   <= 3 * np.spacing(np.abs(vj) + np.float32(1)))
 
 
+@pytest.mark.parametrize("n,d,p,W,w", [(2048, 128, 0.05, 8, 3),
+                                       (300, 10_000, 0.001, 2, 1),
+                                       (50, 24, 0.2, 4, 0)])
+def test_worker_shard_dense_matches_jax(n, d, p, W, w):
+    """The dense shard: b and the zero pattern of A bit-identical to the
+    reference's, A's nonzeros the sparse shard's vals scattered bit for bit
+    (so within the normal draw's few ulp of the reference's, as
+    ``test_worker_shard_sparse_matches_jax`` bounds them)."""
+    with partitionable():
+        Aj, bj = (np.asarray(a) for a in j_data.worker_shard(
+            j_scaled(n, d, density=p), w, W))
+    cfg = scaled(n, d, density=p)
+    At, bt = t_data.worker_shard(cfg, w, W)
+    assert At.dtype == torch.float32 and tuple(At.shape) == Aj.shape
+    np.testing.assert_array_equal(bj, bt.numpy())
+    np.testing.assert_array_equal(Aj != 0, At.numpy() != 0)
+    idx, vals, _ = t_data.worker_shard_sparse(cfg, w, W)
+    assert torch.equal(At.gather(1, idx), vals)
+    assert int((At != 0).sum()) == idx.numel()
+    At = At.numpy()
+    assert np.all(np.abs(Aj - At)
+                  <= 3 * np.spacing(np.abs(Aj) + np.float32(1)))
+
+
+def test_full_objective_matches_jax():
+    rng = np.random.RandomState(2)
+    shards = [((rng.randn(n, 40) * 0.3).astype(np.float32),
+               np.sign(rng.randn(n)).astype(np.float32)) for n in (60, 37)]
+    x = (rng.randn(40) * 0.1).astype(np.float32)
+    want = j_data.full_objective(
+        [(jnp.asarray(A), jnp.asarray(b)) for A, b in shards],
+        jnp.asarray(x), 0.7)
+    got = t_data.full_objective(
+        [(torch.as_tensor(A), torch.as_tensor(b)) for A, b in shards],
+        torch.as_tensor(x), 0.7)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+
+
+def test_ops_logistic_value_and_grad_is_the_plain_oracle_on_the_cpu():
+    """The margin kernel's drop-in on a CPU tensor runs the plain version:
+    the value and gradient of ``data.logreg.logistic_value_and_grad`` on
+    the same dense shard, to float32 summation order."""
+    from repro_torch.kernels import ops
+    rng = np.random.RandomState(3)
+    A = torch.as_tensor((rng.randn(111, 70) * 0.3).astype(np.float32))
+    b = torch.as_tensor(np.sign(rng.randn(111)).astype(np.float32))
+    x = torch.as_tensor((rng.randn(70) * 0.1).astype(np.float32))
+    f, g = ops.logistic_value_and_grad(A, b)(x)
+    fw, gw = t_data.logistic_value_and_grad(A, b)(x)
+    np.testing.assert_allclose(float(f), float(fw), rtol=1e-6)
+    np.testing.assert_allclose(g.numpy(), gw.numpy(), rtol=1e-6, atol=1e-6)
+
+
 def test_chunked_generation_equals_one_chunk(monkeypatch):
     """Row chunking (how the paper instance is generated on the card) does
     not change a bit."""
@@ -229,6 +282,9 @@ def _imported_modules(path: Path):
 def test_port_never_imports_jax_or_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    twins = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert len(twins) == 6
+    files += twins
     assert len(files) > 20
     bad = [(f.relative_to(ROOT).as_posix(), m)
            for f in files for m in _imported_modules(f)

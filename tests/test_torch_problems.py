@@ -674,3 +674,26 @@ def test_each_package_reads_the_others_shard_cache(tmp_path, monkeypatch):
     assert sorted(p.name for p in tmp_path.iterdir()) == ["cwd", "port",
                                                           "ref"]
     assert len(list(port_dir.iterdir())) == len(list(ref_dir.iterdir())) == W
+
+
+if __name__ == "__main__":
+    # the reference's svm at chip_smoke.py phase 6's size on the CPU (SVM_KW,
+    # W=64, the batched engine, 2 rounds, float32): each round's FISTA
+    # steps per worker, beside which PERF.md sets phase 6's card figures
+    # for the port (about 80 s on an 8-core CPU)
+    import json
+    from repro.api import ExperimentSpec, run
+    from repro.runtime import SchedulerConfig as JCfg
+    from test_torch_slice import _chip_smoke
+    smoke = _chip_smoke()
+    with partitionable():
+        res = run(ExperimentSpec(
+            problem="svm", problem_kwargs=smoke.SVM_KW,
+            scheduler=JCfg(n_workers=smoke.PAPER_W, engine="batched"),
+            max_rounds=smoke.PAPER_ROUNDS))
+    for m in res.history:
+        print(json.dumps(dict(
+            round=m.k, r_norm=m.r_norm, s_norm=m.s_norm,
+            inner_mean=float(np.mean(m.inner_iters)),
+            inner_max=int(np.max(m.inner_iters)),
+            inner=np.asarray(m.inner_iters).tolist())))
