@@ -2082,38 +2082,14 @@ def phase_small_newton(torch, api, problems, rt, AdmmOptions, lv, st):
             for leg in ("newton.clean", "newton.straggler", "admm.clean")))
 
 
-def spy_newton(torch, problem, plan, parts, messages_cls):
-    """Time the round's parts on these instances (and on every
-    ``messages_cls``, the RoundMessages class, patched at class level so
-    that no round's messages are kept alive by a reference cycle; the
-    caller restores ``messages_cls.__getitem__``): each call adds its
-    synchronized wall to ``parts[name]`` — "sketch" (margins, the sketch of
-    every block, the gradient shards), "grams" (the messages read: each a
-    Gram product over its blocks' rows, the coding; "rows" counts them),
-    "decode" (the whole decode, grams included), "solve", "line_search".
-    ``parts`` also receives the decode's (total, n_used, responders) and
-    the line search's (alpha, accepted, evaluations)."""
-    sync = torch.cuda.synchronize
-
-    def timed(name, fn):
-        def wrapped(*a, **k):
-            sync()
-            t0 = time.time()
-            out = fn(*a, **k)
-            sync()
-            parts[name] = parts.get(name, 0.0) + time.time() - t0
-            return out
-        return wrapped
-
-    sketch = timed("sketch", problem.round_messages_all)
-    decode = timed("decode", plan.decode_sum)
-    line_search = timed("line_search", problem._line_search)
-
-    row = timed("grams", messages_cls.__getitem__)
-
-    def counted(msgs, w):
-        parts["rows"] = parts.get("rows", 0) + 1
-        return row(msgs, w)
+def spy_newton(problem, plan, parts):
+    """Keep what the Newton phase's checks read: the decode's (total,
+    n_used, responders) under ``parts["decoded"]`` and the line search's
+    (alpha, accepted, evaluations) under ``parts["searched"]``.  The
+    round's parts are timed by the program's own spans
+    (``repro_torch.trace``)."""
+    decode = plan.decode_sum
+    line_search = problem._line_search
 
     def decode_sum(responders, messages):
         out = decode(responders, messages)
@@ -2125,11 +2101,30 @@ def spy_newton(torch, problem, plan, parts, messages_cls):
         parts["searched"] = out
         return out
 
-    problem.round_messages_all = sketch
-    messages_cls.__getitem__ = counted
     plan.decode_sum = decode_sum
-    problem._newton_direction = timed("solve", problem._newton_direction)
     problem._line_search = searched
+
+
+def traced_parts(summary) -> dict:
+    """A round's parts from the tracer's summary of it, on the device's
+    clock (the host's on a CPU run, where no CUDA event is recorded):
+    "sketch" (the count sketch of every block), "grams" (the messages
+    read: each a Gram product over its blocks' rows and the coding; "rows"
+    counts them), "decode" (the whole decode, grams included), "solve",
+    "line_search"."""
+    spans = summary.spans
+
+    def device_s(name):
+        if name not in spans:
+            return 0.0
+        t = spans[name]
+        return t.host_s if t.device_s is None else t.device_s
+    return {"sketch": device_s("newton.scatter"),
+            "grams": device_s("newton.gram"),
+            "rows": spans["newton.gram"].n if "newton.gram" in spans else 0,
+            "decode": device_s("newton.decode"),
+            "solve": device_s("newton.solve"),
+            "line_search": device_s("newton.line_search")}
 
 
 def newton_bounds(plan, n_rows, nnz, d, n_reps, n_evals):
@@ -2182,6 +2177,7 @@ def phase_newton(torch, api, problems, rt, AdmmOptions, lv, st, rows,
     wall split into its parts beside their bounds; the decoded Hessian of
     rounds 1 and 3 against a float64 oracle of the full stack, with the
     control; ``rows`` are phase 4's sparse shards when it ran."""
+    from repro_torch import trace
     tag = "[8]"
     sync = torch.cuda.synchronize
     gc.collect()
@@ -2217,8 +2213,8 @@ def phase_newton(torch, api, problems, rt, AdmmOptions, lv, st, rows,
         f"in {t_plan:.2f} s")
 
     runs, records, parts = {}, {}, {}
-    row = problems.RoundMessages.__getitem__
-    spy_newton(torch, problem, plan, parts, problems.RoundMessages)
+    spy_newton(problem, plan, parts)
+    trace.enable()
     for label, mode in (("sync", "sync"), ("replicated", "replicated"),
                         ("sync again", "sync")):
         rounds, t_last = [], [0.0]
@@ -2229,10 +2225,7 @@ def phase_newton(torch, api, problems, rt, AdmmOptions, lv, st, rows,
             total, n_used, resp = parts.pop("decoded")
             rec = dict(wall=now - t_last[0], n_resp=len(resp),
                        dropped=sorted(set(range(W)) - set(resp)),
-                       searched=parts.pop("searched"), **{
-                           k: parts.pop(k, 0.0) for k in (
-                               "sketch", "grams", "decode", "solve",
-                               "line_search", "rows")})
+                       searched=parts.pop("searched"))
             if _label == "sync" and m.k in (1, NEWTON_ROUNDS):
                 rec["total"], rec["n_used"] = total, n_used
             _rounds.append(rec)
@@ -2242,6 +2235,7 @@ def phase_newton(torch, api, problems, rt, AdmmOptions, lv, st, rows,
                            mode=mode, engine="batched", replication=2)
 
         def go(_spec=spec, _on_round=on_round):
+            trace.reset()
             sync()
             t_last[0] = time.time()
             return api.run(_spec, problem=problem, on_round=_on_round)
@@ -2254,6 +2248,12 @@ def phase_newton(torch, api, problems, rt, AdmmOptions, lv, st, rows,
         if label == "sync":
             peak = torch.cuda.max_memory_allocated() / 1e9
         runs[label], records[label] = res, rounds
+        summaries = trace.rounds()
+        if len(summaries) != len(rounds):
+            fail(f"{tag} the tracer summarised {len(summaries)} rounds of "
+                 f"the {label} run's {len(rounds)}")
+        for rec, summary in zip(rounds, summaries):
+            rec.update(traced_parts(summary))
         for rec, m in zip(rounds, res.history):
             alpha, accepted, n_evals = rec["searched"]
             bounds = newton_bounds(plan, n_rows, nnz, d, rec["rows"], n_evals)
@@ -2273,7 +2273,8 @@ def phase_newton(torch, api, problems, rt, AdmmOptions, lv, st, rows,
                 f"{split}; rest {rest:.3f}; {rec['n_resp']} responders "
                 f"(dropped {rec['dropped']}); r_norm {m.r_norm!r}, s_norm "
                 f"{m.s_norm!r}, alpha {alpha:g}, Armijo accepted {accepted}")
-    problems.RoundMessages.__getitem__ = row
+    trace.disable()
+    trace.reset()
     launches = (dict(lv.LAUNCHES), dict(st.LAUNCHES))
 
     def keys(label):

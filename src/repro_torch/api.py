@@ -39,7 +39,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
-from repro_torch import problems
+from repro_torch import problems, trace
 from repro_torch.device import resolve_device
 from repro_torch.runtime.cluster import (Cluster, ClusterConfig,
                                          ClusterResult, DagRun, DagSpec,
@@ -169,11 +169,12 @@ def run(spec: ExperimentSpec, *, problem=None, device="cuda",
         ) -> RunResult:
     """Run a spec end to end on ``device`` (the card unless asked).
     ``on_round`` fires once per round."""
-    prob, sched = build(spec, problem=problem, device=device)
-    t0 = time.time()
-    sched.solve(max_rounds=spec.max_rounds, on_round=on_round)
-    return result_from_scheduler(spec, prob, sched,
-                                 wall_s=time.time() - t0)
+    with trace.span("solve"):
+        prob, sched = build(spec, problem=problem, device=device)
+        t0 = time.time()
+        sched.solve(max_rounds=spec.max_rounds, on_round=on_round)
+        return result_from_scheduler(spec, prob, sched,
+                                     wall_s=time.time() - t0)
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,8 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import trace
+
 
 @dataclasses.dataclass(frozen=True)
 class FistaOptions:
@@ -53,43 +55,49 @@ def _backtrack(vg: VG, y, f_y, g_y, lip, opts: FistaOptions,
                active: torch.Tensor) -> torch.Tensor:
     """Per lane, find L (by eta-doubling) with
     F(y - g/L) <= F(y) - ||g||^2/(2L); lanes not ``active`` keep theirs."""
-    gsq = torch.sum(g_y * g_y, dim=-1)
-    searching = active.clone()
-    for _ in range(opts.max_backtracks):
-        if not bool(searching.any()):
-            break
-        x_try = y - g_y / lip[:, None]
-        f_try, _ = vg(x_try)
-        ok = f_try <= f_y - 0.5 * gsq / lip + 1e-12 * torch.abs(f_y)
-        lip = torch.where(searching & ~ok, lip * opts.eta, lip)
-        searching = searching & ~ok
+    with trace.span("fista.backtrack"):
+        gsq = torch.sum(g_y * g_y, dim=-1)
+        searching = active.clone()
+        for _ in range(opts.max_backtracks):
+            if not bool(searching.any()):
+                break
+            x_try = y - g_y / lip[:, None]
+            f_try, _ = vg(x_try)
+            trace.count("fista.evals")
+            ok = f_try <= f_y - 0.5 * gsq / lip + 1e-12 * torch.abs(f_y)
+            lip = torch.where(searching & ~ok, lip * opts.eta, lip)
+            searching = searching & ~ok
     return lip
 
 
 def _step(vg: VG, st: FistaState, opts: FistaOptions,
           active: torch.Tensor) -> FistaState:
-    f_y, g_y = vg(st.y)
-    lip = _backtrack(vg, st.y, f_y, g_y, st.lip, opts, active)
-    x_new = st.y - g_y / lip[:, None]
-    f_new, _ = vg(x_new)
-    # monotone safeguard (MFISTA-lite): never accept an increase over x_k
-    worse = f_new > st.f_x
-    x_new = torch.where(worse[:, None], st.x, x_new)
-    f_new = torch.where(worse, st.f_x, f_new)
-    t_new = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * st.t * st.t))
-    y_new = x_new + ((st.t - 1.0) / t_new)[:, None] * (x_new - st.x)
-    rel = (st.f_x - f_new) / torch.clamp_min(torch.abs(st.f_x), 1e-30)
-    new = FistaState(x=x_new, y=y_new, t=t_new, lip=lip, f_x=f_new,
-                     g_norm=torch.linalg.vector_norm(g_y, dim=-1),
-                     rel_impr=rel, k=st.k + 1)
-    # lanes whose loop has ended keep their state, as under vmap
-    return FistaState(*(torch.where(active[:, None] if n.dim() == 2
-                                    else active, n, o)
-                        for n, o in zip(new, st)))
+    with trace.span("fista.step"):
+        f_y, g_y = vg(st.y)
+        trace.count("fista.evals")
+        lip = _backtrack(vg, st.y, f_y, g_y, st.lip, opts, active)
+        x_new = st.y - g_y / lip[:, None]
+        f_new, _ = vg(x_new)
+        trace.count("fista.evals")
+        # monotone safeguard (MFISTA-lite): never accept an increase over x_k
+        worse = f_new > st.f_x
+        x_new = torch.where(worse[:, None], st.x, x_new)
+        f_new = torch.where(worse, st.f_x, f_new)
+        t_new = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * st.t * st.t))
+        y_new = x_new + ((st.t - 1.0) / t_new)[:, None] * (x_new - st.x)
+        rel = (st.f_x - f_new) / torch.clamp_min(torch.abs(st.f_x), 1e-30)
+        new = FistaState(x=x_new, y=y_new, t=t_new, lip=lip, f_x=f_new,
+                         g_norm=torch.linalg.vector_norm(g_y, dim=-1),
+                         rel_impr=rel, k=st.k + 1)
+        # lanes whose loop has ended keep their state, as under vmap
+        return FistaState(*(torch.where(active[:, None] if n.dim() == 2
+                                        else active, n, o)
+                            for n, o in zip(new, st)))
 
 
 def _init(vg: VG, x0: torch.Tensor, opts: FistaOptions) -> FistaState:
     f0, _ = vg(x0)
+    trace.count("fista.evals")
     lanes = x0.shape[0]
 
     def full(v):

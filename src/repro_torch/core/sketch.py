@@ -39,6 +39,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import coding
 from repro_torch.data.logreg import add_at
 
@@ -313,19 +314,22 @@ class BlockSketch:
         subset cannot reconstruct).  Uncoded: the plain sum over the
         arrived blocks (ignore-extra-blocks; requires at least ``n_blocks``
         of them)."""
-        responders = np.asarray(responders)
-        if self.B is not None:
-            a, n_used = coding.decode_coeffs(self.B, responders), self.n_tasks
-        elif len(responders) < self.n_blocks:
-            raise ValueError(
-                f"ignore-extra-blocks needs >= {self.n_blocks} of "
-                f"{self.n_tasks} blocks, got {len(responders)}")
-        else:
-            a, n_used = np.ones(len(responders), np.float32), len(responders)
-        total = None
-        for i in np.flatnonzero(a):
-            m = messages[int(i)]
-            if total is None:
-                total = torch.zeros_like(m)
-            total.add_(m, alpha=float(a[i]))
-        return total, n_used
+        with trace.span("newton.decode"):
+            responders = np.asarray(responders)
+            if self.B is not None:
+                a = coding.decode_coeffs(self.B, responders)
+                n_used = self.n_tasks
+            elif len(responders) < self.n_blocks:
+                raise ValueError(
+                    f"ignore-extra-blocks needs >= {self.n_blocks} of "
+                    f"{self.n_tasks} blocks, got {len(responders)}")
+            else:
+                a = np.ones(len(responders), np.float32)
+                n_used = len(responders)
+            total = None
+            for i in np.flatnonzero(a):
+                m = messages[int(i)]
+                if total is None:
+                    total = torch.zeros_like(m)
+                total.add_(m, alpha=float(a[i]))
+            return total, n_used

@@ -33,6 +33,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.configs.logreg_paper import scaled
 from repro_torch.core.sketch import BlockSketch
 from repro_torch.data import logreg as data_mod
@@ -61,22 +62,24 @@ class RoundMessages:
 
     def __getitem__(self, w: int) -> torch.Tensor:
         """Task ``w``'s message (see the class docstring)."""
-        w = int(w)
-        d = self.grads.shape[1]
-        if self.plan.B is None:
-            blocks, coeff = np.array([w]), np.ones(1, np.float32)
-        else:
-            blocks = np.flatnonzero(self.plan.B[w])
-            coeff = self.plan.B[w, blocks]
-        c = torch.as_tensor(coeff, device=self.SA.device).to(self.SA.dtype)
-        bidx = torch.as_tensor(blocks, device=self.SA.device)
-        out = torch.empty(d + d * d, dtype=self.SA.dtype,
-                          device=self.SA.device)
-        out[:d] = c @ self.grads[bidx]
-        rows = self.SA[bidx]
-        torch.matmul((rows * c[:, None, None]).reshape(-1, d).T,
-                     rows.reshape(-1, d), out=out[d:].view(d, d))
-        return out
+        with trace.span("newton.gram"):
+            w = int(w)
+            d = self.grads.shape[1]
+            if self.plan.B is None:
+                blocks, coeff = np.array([w]), np.ones(1, np.float32)
+            else:
+                blocks = np.flatnonzero(self.plan.B[w])
+                coeff = self.plan.B[w, blocks]
+            c = torch.as_tensor(coeff, device=self.SA.device).to(
+                self.SA.dtype)
+            bidx = torch.as_tensor(blocks, device=self.SA.device)
+            out = torch.empty(d + d * d, dtype=self.SA.dtype,
+                              device=self.SA.device)
+            out[:d] = c @ self.grads[bidx]
+            rows = self.SA[bidx]
+            torch.matmul((rows * c[:, None, None]).reshape(-1, d).T,
+                         rows.reshape(-1, d), out=out[d:].view(d, d))
+            return out
 
 
 class _Picked:
@@ -199,8 +202,9 @@ class NewtonSketchProblem:
         sig = torch.sigmoid(margins)
         coef = -b * sig                               # ∇ loss = Aᵀ coef
         w = sig * (1.0 - sig)                         # Hessian weights
-        SA = plan.apply_all((idx, vals), weights=torch.sqrt(w),
-                            n_cols=self.n_features)   # (W, block_rows, d)
+        with trace.span("newton.scatter"):
+            SA = plan.apply_all((idx, vals), weights=torch.sqrt(w),
+                                n_cols=self.n_features)  # (W, rows, d)
         grads = torch.zeros((n_workers, self.n_features), dtype=self.dtype,
                             device=self.device)
         flat = self._row_blocks(n_workers)[:, None] * self.n_features + idx
@@ -232,28 +236,30 @@ class NewtonSketchProblem:
                           grad: torch.Tensor) -> torch.Tensor:
         """p = -H⁻¹ grad in float64; -grad when H is singular or p is not a
         descent direction (the globalization guard)."""
-        sol, info = torch.linalg.solve_ex(H, grad)
-        p = -grad if int(info) != 0 else -sol
-        if float(grad @ p) >= 0.0:
-            p = -grad
-        return p
+        with trace.span("newton.solve"):
+            sol, info = torch.linalg.solve_ex(H, grad)
+            p = -grad if int(info) != 0 else -sol
+            if float(grad @ p) >= 0.0:
+                p = -grad
+            return p
 
     def _line_search(self, z64: torch.Tensor, p: torch.Tensor,
                      grad: torch.Tensor) -> Tuple[float, bool, int]:
         """Armijo backtracking from alpha = 1.  Returns (alpha, whether the
         Armijo test accepted it, objective evaluations); when no trial
         passes, the best trial's alpha."""
-        f0 = self._objective64(z64)
-        gTp = float(grad @ p)
-        alpha, best_alpha, best_f = 1.0, 1.0, np.inf
-        for n in range(1, self.ls_max + 1):
-            f_try = self._objective64(z64 + alpha * p)
-            if f_try <= f0 + 1e-4 * alpha * gTp:     # Armijo
-                return alpha, True, n + 1
-            if f_try < best_f:
-                best_alpha, best_f = alpha, f_try
-            alpha *= 0.5
-        return best_alpha, False, self.ls_max + 1
+        with trace.span("newton.line_search"):
+            f0 = self._objective64(z64)
+            gTp = float(grad @ p)
+            alpha, best_alpha, best_f = 1.0, 1.0, np.inf
+            for n in range(1, self.ls_max + 1):
+                f_try = self._objective64(z64 + alpha * p)
+                if f_try <= f0 + 1e-4 * alpha * gTp:     # Armijo
+                    return alpha, True, n + 1
+                if f_try < best_f:
+                    best_alpha, best_f = alpha, f_try
+                alpha *= 0.5
+            return best_alpha, False, self.ls_max + 1
 
     def decode(self, messages, responders: np.ndarray,
                n_workers: int) -> Tuple[torch.Tensor, int]:

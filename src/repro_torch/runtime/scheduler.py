@@ -58,6 +58,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import admm
 from repro_torch.core.admm import AdmmOptions
 from repro_torch.kernels import ops
@@ -315,164 +316,178 @@ class Scheduler:
         (W,)); the new (x, u) wait on ``self._batched_xu``."""
         W = self.cfg.n_workers
         extras = np.zeros(W)
-        for wid in range(W):
-            extras[wid] = self._maybe_respawn(wid)
-        r = self.x - self.z[None, :]
-        u_new = self.u + r
-        q = torch.sum(r * r, dim=-1).cpu().numpy().astype(np.float64)
-        if self._kernel_cuda:
-            xs_new, iters = self.problem.solve_all(self.x, u_new, self.z,
-                                                   self.rho, kernel="cuda")
-        else:
-            xs_new, iters = self.problem.solve_all(self.x, u_new, self.z,
-                                                   self.rho)
-        omegas = xs_new + u_new
-        if self.codec.method != "none":
-            # the codec is stateful per logical slot, so compression
-            # encodes slot by slot, as the reference does
-            omegas = torch.stack([self.codec.encode(lw, omegas[lw])
-                                  for lw in range(self.n_logical)])
+        with trace.span("round.respawn"):
+            for wid in range(W):
+                extras[wid] = self._maybe_respawn(wid)
+        with trace.span("round.xupdate"):
+            r = self.x - self.z[None, :]
+            u_new = self.u + r
+            q = torch.sum(r * r, dim=-1).cpu().numpy().astype(np.float64)
+            if self._kernel_cuda:
+                xs_new, iters = self.problem.solve_all(
+                    self.x, u_new, self.z, self.rho, kernel="cuda")
+            else:
+                xs_new, iters = self.problem.solve_all(self.x, u_new,
+                                                       self.z, self.rho)
+            omegas = xs_new + u_new
+            if self.codec.method != "none":
+                # the codec is stateful per logical slot, so compression
+                # encodes slot by slot, as the reference does
+                omegas = torch.stack([self.codec.encode(lw, omegas[lw])
+                                      for lw in range(self.n_logical)])
         self._batched_xu = (xs_new, u_new)
         return q, np.asarray(iters, np.int64), omegas, extras
 
     def _master_z_update(self, omega_bar: torch.Tensor, q_sum: float,
                          n_eff: int, adapt_rho: bool = True):
-        r_norm = float(np.sqrt(q_sum))
-        # dual residual in Boyd's consensus form s = rho*sqrt(W)*||dz||
-        lam = getattr(self.problem, "h_l1_lam", None)
-        if (self._kernel_cuda and lam is not None
-                and omega_bar.dtype == torch.float32):
-            # fused: z = S(ω̄; lam/(W·rho)), ||dz||² and nnz(z) in one pass
-            thr = float(lam) / (n_eff * self.rho)
-            z_new, ssq, nnz = ops.fused_z_update(omega_bar, self.z, thr)
-            s_norm = float(self.rho * np.sqrt(float(ssq)) * np.sqrt(n_eff))
-            self._z_nnz = int(nnz)
-        else:
-            z_new = self.problem.prox_h(omega_bar, 1.0 / (n_eff * self.rho))
-            dz = torch.linalg.vector_norm(z_new - self.z)
-            s_norm = float((self.rho * dz) * float(np.sqrt(n_eff)))
-            self._z_nnz = -1
-        self.z_prev, self.z = self.z, z_new
-        rho_old = self.rho
-        if adapt_rho:
-            self.rho = float(admm.new_penalty(self.rho, r_norm, s_norm,
-                                              self.cfg.admm))
-        if self.rho != rho_old:
-            # workers rescale their scaled duals u = y/rho (Boyd §3.4.1)
-            self.u = self.u * (rho_old / self.rho)
+        with trace.span("round.zupdate"):
+            r_norm = float(np.sqrt(q_sum))
+            # dual residual in Boyd's consensus form s = rho*sqrt(W)*||dz||
+            lam = getattr(self.problem, "h_l1_lam", None)
+            if (self._kernel_cuda and lam is not None
+                    and omega_bar.dtype == torch.float32):
+                # fused: z = S(ω̄; lam/(W·rho)), ||dz||², nnz(z) in one pass
+                thr = float(lam) / (n_eff * self.rho)
+                z_new, ssq, nnz = ops.fused_z_update(omega_bar, self.z, thr)
+                s_norm = float(self.rho * np.sqrt(float(ssq))
+                               * np.sqrt(n_eff))
+                self._z_nnz = int(nnz)
+            else:
+                z_new = self.problem.prox_h(omega_bar,
+                                            1.0 / (n_eff * self.rho))
+                dz = torch.linalg.vector_norm(z_new - self.z)
+                s_norm = float((self.rho * dz) * float(np.sqrt(n_eff)))
+                self._z_nnz = -1
+            self.z_prev, self.z = self.z, z_new
+            rho_old = self.rho
+            if adapt_rho:
+                self.rho = float(admm.new_penalty(self.rho, r_norm, s_norm,
+                                                  self.cfg.admm))
+            if self.rho != rho_old:
+                # workers rescale their scaled duals u = y/rho (Boyd §3.4.1)
+                self.u = self.u * (rho_old / self.rho)
         return r_norm, s_norm
 
     # ------------------------------------------------------------------
     def run_round(self) -> RoundMetrics:
         """One synchronous-family round (sync / drop_slowest / replicated)."""
-        cfg = self.cfg
-        W = cfg.n_workers
-        t_comp = np.zeros(W)
-        t_comm = np.zeros(W)
-        inner = np.zeros(W, np.int64)
-        round_start = self.sim_time
-        self._round_results: Dict[int, Tuple] = {}
-        codec_snap = self.codec.snapshot()
+        with trace.span("round"):
+            cfg = self.cfg
+            W = cfg.n_workers
+            t_comp = np.zeros(W)
+            t_comm = np.zeros(W)
+            inner = np.zeros(W, np.int64)
+            round_start = self.sim_time
+            self._round_results: Dict[int, Tuple] = {}
+            codec_snap = self.codec.snapshot()
 
-        batched = self._engine_batched
-        fresh: Dict[int, Tuple[torch.Tensor, float]] = {}
-        extras = np.zeros(W)
-        if batched:
-            q_all, iters_all, omegas, extras = self._all_worker_passes()
-            for wid in range(W):
-                inner[wid] = iters_all[self._logical(wid)]
-        else:
-            for wid in range(W):
-                omega, q, it, extra = self._worker_pass(wid)
-                inner[wid] = it
-                extras[wid] = extra
-                fresh[wid] = (omega, q)
+            batched = self._engine_batched
+            fresh: Dict[int, Tuple[torch.Tensor, float]] = {}
+            extras = np.zeros(W)
+            if batched:
+                q_all, iters_all, omegas, extras = self._all_worker_passes()
+                for wid in range(W):
+                    inner[wid] = iters_all[self._logical(wid)]
+            else:
+                with trace.span("round.xupdate"):
+                    for wid in range(W):
+                        omega, q, it, extra = self._worker_pass(wid)
+                        inner[wid] = it
+                        extras[wid] = extra
+                        fresh[wid] = (omega, q)
 
-        timing_iters = inner.copy()
-        if cfg.iter_smoothing:
-            timing_iters[:] = max(int(np.median(inner)), 1)
-        arrivals = []
-        # z is broadcast dense (only the ω uplink would be compressed)
-        rx = self.pool.comm_time(4 * self.wire_d)
-        tx = self.pool.comm_time(self.msg_bytes)
-        for wid in range(W):
-            lw = self._logical(wid)
-            tc = self.pool.compute_time(
-                self.pool.workers[wid], int(timing_iters[wid]),
-                self.problem.n_samples(lw, self.n_logical))
-            t_comp[wid] = tc
-            t_comm[wid] = rx + tx                      # rx z + tx ω
-            arrivals.append((round_start + extras[wid] + rx + tc + tx,
-                             wid))
+            with trace.span("round.simulate"):
+                timing_iters = inner.copy()
+                if cfg.iter_smoothing:
+                    timing_iters[:] = max(int(np.median(inner)), 1)
+                arrivals = []
+                # z is broadcast dense (only the ω uplink would be
+                # compressed)
+                rx = self.pool.comm_time(4 * self.wire_d)
+                tx = self.pool.comm_time(self.msg_bytes)
+                for wid in range(W):
+                    lw = self._logical(wid)
+                    tc = self.pool.compute_time(
+                        self.pool.workers[wid], int(timing_iters[wid]),
+                        self.problem.n_samples(lw, self.n_logical))
+                    t_comp[wid] = tc
+                    t_comm[wid] = rx + tx                  # rx z + tx ω
+                    arrivals.append((round_start + extras[wid] + rx + tc
+                                     + tx, wid))
 
-        # -- which messages does the master wait for? -----------------------
-        if cfg.mode == "drop_slowest":
-            n_wait = W - int(cfg.drop_frac * W)
-            waited = sorted(arrivals)[:n_wait]
-        elif cfg.mode == "replicated":
-            # first responder per group (replicas are exact copies)
-            waited, seen = [], set()
-            for t, wid in sorted(arrivals):
-                g = self._logical(wid)
-                if g not in seen:
-                    seen.add(g)
-                    waited.append((t, wid))
-        else:
-            waited = sorted(arrivals)
+                # -- which messages does the master wait for? -----------
+                if cfg.mode == "drop_slowest":
+                    n_wait = W - int(cfg.drop_frac * W)
+                    waited = sorted(arrivals)[:n_wait]
+                elif cfg.mode == "replicated":
+                    # first responder per group (replicas are exact copies)
+                    waited, seen = [], set()
+                    for t, wid in sorted(arrivals):
+                        g = self._logical(wid)
+                        if g not in seen:
+                            seen.add(g)
+                            waited.append((t, wid))
+                else:
+                    waited = sorted(arrivals)
 
-        # stale-cache ω table: unwaited slots keep their previous ω; local
-        # x/u always advance
-        waited_lws = {self._logical(wid) for _, wid in waited}
-        self.codec.rollback_except(codec_snap, waited_lws)
-        if batched:
-            idx = np.fromiter(sorted(waited_lws), np.int64)
-            tidx = torch.as_tensor(idx, device=self.device)
-            self.omega_table[tidx] = omegas[tidx]
-            self.q_table[idx] = q_all[idx]
-            self.x, self.u = self._batched_xu
-        else:
-            for _, wid in waited:
-                om, q = fresh[wid]
-                lw = self._logical(wid)
-                self.omega_table[lw] = om
-                self.q_table[lw] = q
-            for lw in self._round_results:
-                self._commit_xu(lw)
+                # -- scheduler fan-in timing (flat router vs the tree) ---
+                master_done = fanin_drain(waited, cfg.fanin, self.pool,
+                                          cfg.tree, self.msg_bytes, W)
 
-        # -- scheduler fan-in timing (flat router vs the tree) --------------
-        master_done = fanin_drain(waited, cfg.fanin, self.pool, cfg.tree,
-                                  self.msg_bytes, W)
+            with trace.span("round.fanin"):
+                # stale-cache ω table: unwaited slots keep their previous ω;
+                # local x/u always advance
+                waited_lws = {self._logical(wid) for _, wid in waited}
+                self.codec.rollback_except(codec_snap, waited_lws)
+                if batched:
+                    idx = np.fromiter(sorted(waited_lws), np.int64)
+                    tidx = torch.as_tensor(idx, device=self.device)
+                    self.omega_table[tidx] = omegas[tidx]
+                    self.q_table[idx] = q_all[idx]
+                    self.x, self.u = self._batched_xu
+                else:
+                    for _, wid in waited:
+                        om, q = fresh[wid]
+                        lw = self._logical(wid)
+                        self.omega_table[lw] = om
+                        self.q_table[lw] = q
+                    for lw in self._round_results:
+                        self._commit_xu(lw)
+                omega_bar = torch.mean(self.omega_table, dim=0)
+                q_sum = float(self.q_table.sum())
 
-        omega_bar = torch.mean(self.omega_table, dim=0)
-        q_sum = float(self.q_table.sum())
-        r_norm, s_norm = self._master_z_update(omega_bar, q_sum,
-                                               self.n_logical)
+            r_norm, s_norm = self._master_z_update(omega_bar, q_sum,
+                                                   self.n_logical)
+            with trace.span("round.simulate"):
+                bcast = self.pool.comm_time(4 * self.wire_d)
+                self.sim_time = master_done + bcast
+                round_wall = self.sim_time - round_start
+                t_idle = round_wall - t_comp
+                self.k += 1
 
-        bcast = self.pool.comm_time(4 * self.wire_d)
-        self.sim_time = master_done + bcast
-        round_wall = self.sim_time - round_start
-        t_idle = round_wall - t_comp
-        self.k += 1
+                # the bill: every worker holds its memory for the whole
+                # round, every ω uplink + z downlink crosses the boundary,
+                # the coordinator runs throughout; respawn init spans are
+                # carved out of the workers' time
+                self._bill_spawns()
+                self.meter.record_duration(round_wall * W
+                                           - float(extras.sum()))
+                self.meter.record_master(round_wall)
+                self.meter.record_bytes(W * (self.msg_bytes
+                                             + 4 * self.wire_d))
 
-        # the bill: every worker holds its memory for the whole round, every
-        # ω uplink + z downlink crosses the boundary, the coordinator runs
-        # throughout; respawn init spans are carved out of the workers' time
-        self._bill_spawns()
-        self.meter.record_duration(round_wall * W - float(extras.sum()))
-        self.meter.record_master(round_wall)
-        self.meter.record_bytes(W * (self.msg_bytes + 4 * self.wire_d))
-
-        thresh = np.quantile([t for t, _ in arrivals], 0.9)
-        m = RoundMetrics(
-            k=self.k, sim_time=self.sim_time, r_norm=r_norm, s_norm=s_norm,
-            rho=self.rho, t_comp=t_comp, t_comm=t_comm, t_idle=t_idle,
-            inner_iters=inner, n_respawns=self.n_respawns,
-            slowest10=np.array([t >= thresh for t, _ in arrivals]),
-            round_wall_s=round_wall,
-            t_fanin_wait=master_done - max(t for t, _ in waited),
-            cost_usd=self.meter.total_usd(), n_workers=W,
-            z_nnz=self._z_nnz)
-        self.history.append(m)
+                thresh = np.quantile([t for t, _ in arrivals], 0.9)
+                m = RoundMetrics(
+                    k=self.k, sim_time=self.sim_time, r_norm=r_norm,
+                    s_norm=s_norm, rho=self.rho, t_comp=t_comp,
+                    t_comm=t_comm, t_idle=t_idle, inner_iters=inner,
+                    n_respawns=self.n_respawns,
+                    slowest10=np.array([t >= thresh for t, _ in arrivals]),
+                    round_wall_s=round_wall,
+                    t_fanin_wait=master_done - max(t for t, _ in waited),
+                    cost_usd=self.meter.total_usd(), n_workers=W,
+                    z_nnz=self._z_nnz)
+                self.history.append(m)
         return m
 
     # ------------------------------------------------------------------
@@ -492,83 +507,91 @@ class Scheduler:
         The master reads only the responders' messages, one at a time
         (``master_step``), so the round's d²-sized messages are never
         stacked."""
-        cfg = self.cfg
-        W = cfg.n_workers
-        t_comp = np.zeros(W)
-        t_comm = np.zeros(W)
-        inner = np.zeros(W, np.int64)
-        round_start = self.sim_time
+        with trace.span("round"):
+            cfg = self.cfg
+            W = cfg.n_workers
+            t_comp = np.zeros(W)
+            t_comm = np.zeros(W)
+            inner = np.zeros(W, np.int64)
+            round_start = self.sim_time
 
-        # respawn checks first, in wid order (the same pool-RNG draws for
-        # both engines)
-        extras = np.zeros(W)
-        for wid in range(W):
-            extras[wid] = self._maybe_respawn(wid)
-        if self._engine_batched:
-            msgs, iters_all = self.problem.round_messages_all(self.z, W)
-        else:
-            out = [self.problem.round_message(wid, W, self.z)
-                   for wid in range(W)]
-            msgs = [m for m, _ in out]
-            iters_all = [it for _, it in out]
-        for wid in range(W):
-            inner[wid] = int(iters_all[wid])
+            # respawn checks first, in wid order (the same pool-RNG draws
+            # for both engines)
+            extras = np.zeros(W)
+            with trace.span("round.respawn"):
+                for wid in range(W):
+                    extras[wid] = self._maybe_respawn(wid)
+            if self._engine_batched:
+                msgs, iters_all = self.problem.round_messages_all(self.z, W)
+            else:
+                out = [self.problem.round_message(wid, W, self.z)
+                       for wid in range(W)]
+                msgs = [m for m, _ in out]
+                iters_all = [it for _, it in out]
+            for wid in range(W):
+                inner[wid] = int(iters_all[wid])
 
-        timing_iters = inner.copy()
-        if cfg.iter_smoothing:
-            timing_iters[:] = max(int(np.median(inner)), 1)
-        rx = self.pool.comm_time(4 * self.wire_d)      # dense z downlink
-        tx = self.pool.comm_time(self.msg_bytes)       # block message up
-        arrivals = []
-        for wid in range(W):
-            tc = self.pool.compute_time(
-                self.pool.workers[wid], int(timing_iters[wid]),
-                self.problem.n_samples(wid, W))
-            t_comp[wid] = tc
-            t_comm[wid] = rx + tx
-            arrivals.append((round_start + extras[wid] + rx + tc + tx,
-                             wid))
+            with trace.span("round.simulate"):
+                timing_iters = inner.copy()
+                if cfg.iter_smoothing:
+                    timing_iters[:] = max(int(np.median(inner)), 1)
+                rx = self.pool.comm_time(4 * self.wire_d)  # dense z downlink
+                tx = self.pool.comm_time(self.msg_bytes)   # block message up
+                arrivals = []
+                for wid in range(W):
+                    tc = self.pool.compute_time(
+                        self.pool.workers[wid], int(timing_iters[wid]),
+                        self.problem.n_samples(wid, W))
+                    t_comp[wid] = tc
+                    t_comm[wid] = rx + tx
+                    arrivals.append((round_start + extras[wid] + rx + tc
+                                     + tx, wid))
 
-        if cfg.mode == "drop_slowest":
-            n_wait = W - int(cfg.drop_frac * W)
-            waited = sorted(arrivals)[:n_wait]
-        elif cfg.mode == "replicated":
-            waited = sorted(arrivals)[:W - (cfg.replication - 1)]
-        else:
-            waited = sorted(arrivals)
+                if cfg.mode == "drop_slowest":
+                    n_wait = W - int(cfg.drop_frac * W)
+                    waited = sorted(arrivals)[:n_wait]
+                elif cfg.mode == "replicated":
+                    waited = sorted(arrivals)[:W - (cfg.replication - 1)]
+                else:
+                    waited = sorted(arrivals)
 
-        master_done = fanin_drain(waited, cfg.fanin, self.pool, cfg.tree,
-                                  self.msg_bytes, W)
+                master_done = fanin_drain(waited, cfg.fanin, self.pool,
+                                          cfg.tree, self.msg_bytes, W)
 
-        responders = np.asarray(sorted(wid for _, wid in waited), np.int64)
-        z_new, r_norm, s_norm = self.problem.master_step(
-            self.z, msgs, responders, W)
-        self.z_prev, self.z = self.z, z_new.to(self.z.dtype)
+            responders = np.asarray(sorted(wid for _, wid in waited),
+                                    np.int64)
+            z_new, r_norm, s_norm = self.problem.master_step(
+                self.z, msgs, responders, W)
+            self.z_prev, self.z = self.z, z_new.to(self.z.dtype)
 
-        bcast = self.pool.comm_time(4 * self.wire_d)
-        self.sim_time = master_done + bcast
-        round_wall = self.sim_time - round_start
-        t_idle = round_wall - t_comp
-        self.k += 1
+            with trace.span("round.simulate"):
+                bcast = self.pool.comm_time(4 * self.wire_d)
+                self.sim_time = master_done + bcast
+                round_wall = self.sim_time - round_start
+                t_idle = round_wall - t_comp
+                self.k += 1
 
-        # billing as in run_round: every worker holds its memory for the
-        # whole round, every block uplink + z downlink crosses the
-        # boundary, the coordinator runs throughout
-        self._bill_spawns()
-        self.meter.record_duration(round_wall * W - float(extras.sum()))
-        self.meter.record_master(round_wall)
-        self.meter.record_bytes(W * (self.msg_bytes + 4 * self.wire_d))
+                # billing as in run_round: every worker holds its memory for
+                # the whole round, every block uplink + z downlink crosses
+                # the boundary, the coordinator runs throughout
+                self._bill_spawns()
+                self.meter.record_duration(round_wall * W
+                                           - float(extras.sum()))
+                self.meter.record_master(round_wall)
+                self.meter.record_bytes(W * (self.msg_bytes
+                                             + 4 * self.wire_d))
 
-        thresh = np.quantile([t for t, _ in arrivals], 0.9)
-        m = RoundMetrics(
-            k=self.k, sim_time=self.sim_time, r_norm=r_norm, s_norm=s_norm,
-            rho=self.rho, t_comp=t_comp, t_comm=t_comm, t_idle=t_idle,
-            inner_iters=inner, n_respawns=self.n_respawns,
-            slowest10=np.array([t >= thresh for t, _ in arrivals]),
-            round_wall_s=round_wall,
-            t_fanin_wait=master_done - max(t for t, _ in waited),
-            cost_usd=self.meter.total_usd(), n_workers=W, z_nnz=-1)
-        self.history.append(m)
+                thresh = np.quantile([t for t, _ in arrivals], 0.9)
+                m = RoundMetrics(
+                    k=self.k, sim_time=self.sim_time, r_norm=r_norm,
+                    s_norm=s_norm, rho=self.rho, t_comp=t_comp,
+                    t_comm=t_comm, t_idle=t_idle, inner_iters=inner,
+                    n_respawns=self.n_respawns,
+                    slowest10=np.array([t >= thresh for t, _ in arrivals]),
+                    round_wall_s=round_wall,
+                    t_fanin_wait=master_done - max(t for t, _ in waited),
+                    cost_usd=self.meter.total_usd(), n_workers=W, z_nnz=-1)
+                self.history.append(m)
         return m
 
     # ------------------------------------------------------------------
