@@ -26,7 +26,12 @@ caught):
      second call, with the kernel's, the plain version's, the bound's
      and a yardstick's times (scaled_dot_product_attention for attention,
      one cuBLAS read of A for the margin kernel, an empty kernel for the
-     z-update); the flash kernel's causal=False instantiation on small
+     z-update); the margin kernel's rows mode (what kernel="cuda" runs)
+     on small ragged, chunked and cluster shapes and at the paper's rows
+     in 64 and 256 lanes, each call and a CUDA graph's replay bitwise
+     equal, timed in a CUDA graph beside the rows' bound, the plain
+     sparse path and the dense kernel on the rows densified; the flash
+     kernel's causal=False instantiation on small
      ragged shapes (Skv != S, off the key tiles) and at the VLM's
      cross-attention prefill (8, 2048 queries, 64 heads over 8, 128) over
      1 601 image tokens, against block_attention(causal=False) and
@@ -366,18 +371,19 @@ def ptxas_report(log: str):
 
 
 def check_margin_spills(log: str) -> None:
-    """Fail unless nvcc's output for logistic_vjp reports its
-    ``margin_one_pass`` bodies and none of them spills.  The body keeps x
-    and the gradient partial in registers: a spill would put its per-row
-    work through local memory.  An output without the report (a library
-    built without its .log beside it) fails too, since nothing was
-    checked."""
+    """Fail unless nvcc's output for logistic_vjp reports its margin
+    bodies (``margin_one_pass``, ``margin_rows``) and none of them spills.
+    The dense body keeps x and the gradient partial in registers, the rows
+    body a batch of loads: a spill would put the per-row work through
+    local memory.  An output without the report (a library built without
+    its .log beside it) fails too, since nothing was checked."""
     bodies = [(fn, spill) for fn, _, spill in ptxas_report(log)
-              if "margin_one_pass" in fn]
+              if "margin_one_pass" in fn or "margin_rows" in fn]
     if not bodies:
         fail("nvcc's output for logistic_vjp holds no ptxas report of "
-             "margin_one_pass, so its spills cannot be checked (remove "
-             "build/torch_kernels to rebuild the library with its log)")
+             "margin_one_pass or margin_rows, so their spills cannot be "
+             "checked (remove build/torch_kernels to rebuild the library "
+             "with its log)")
     spills = [fn for fn, spill in bodies
               if "0 bytes spill stores, 0 bytes spill loads" not in spill]
     if spills:
@@ -602,6 +608,167 @@ def phase_parity(torch, lv, st, ref):
         z_times[D], max_abs_err=worst["soft_threshold"], shape=[D],
         floor_ms=floor_ms, ms_1e6=z_times[1_000_003]["ms"],
         bound_ms_1e6=z_times[1_000_003]["bound_ms"])
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 2, the margin kernel's rows mode (what kernel="cuda" runs)
+# ---------------------------------------------------------------------------
+
+# (W, N, k, d), all-zero-mask lanes: ragged rows and columns, repeated
+# indices (drawn with replacement), a cluster of 8 (W = 1), more lanes than
+# a wave holds, and a lane in chunks (x of 50 000 floats leaves shared
+# memory for a few thousand rows)
+ROWS_SMALL = [((3, 111, 7, 70), (0,)), ((2, 300, 10, 129), (1,)),
+              ((130, 17, 3, 64), (5,)), ((1, 2048, 10, 128), ()),
+              ((1, 1, 1, 5), ()), ((5, 1001, 10, 10_000), (2,)),
+              ((1, 70_000, 4, 50_000), ())]
+# the main path's shapes: the paper's rows in 64 and 256 lanes
+ROWS_PAPER = ((64, 10), (256, 10))
+
+
+def staged_gb(rows) -> float:
+    """The rows staging's device bytes, in GB."""
+    return sum(t.numel() * t.element_size() for t in rows) / 1e9
+
+
+def rows_plain(ref, loss, rows, mask, x, gamma=0.5):
+    if loss == "logistic":
+        return ref.logistic_vjp_rows_ref(rows.idx, rows.vals, rows.b, mask,
+                                         x)
+    return ref.svm_vjp_rows_ref(rows.idx, rows.vals, rows.b, mask, x, gamma)
+
+
+def rows_inputs(torch, base, W, N, k, d, zero_lanes=(), seed=0):
+    """Sparse rows drawn on the card, indices with replacement, the last
+    w % 3 rows of lane w padded as ``batch_shards`` pads them; staged."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    idx = torch.randint(0, d, (W, N, k), generator=g, device="cuda")
+    vals = torch.randn((W, N, k), generator=g, device="cuda")
+    b = torch.where(torch.rand((W, N), generator=g, device="cuda") < 0.5,
+                    -1.0, 1.0)
+    mask = torch.ones((W, N), device="cuda")
+    tail = torch.arange(W, device="cuda") % 3
+    pad = torch.arange(N, device="cuda")[None, :] >= (N - tail)[:, None]
+    mask[pad] = 0.0
+    idx[pad] = 0
+    vals[pad] = 0.0
+    b[pad] = 0.0
+    mask[list(zero_lanes)] = 0.0
+    x = torch.randn((W, d), generator=g, device="cuda") * 0.2
+    return base.stage_sparse_rows(idx, vals, b, mask, d), mask, x
+
+
+def check_rows(torch, lv, ref, loss, rows, mask, x, zero_lanes=()):
+    """The rows mode against its plain version; all-zero-mask lanes exactly
+    0; a second call and a CUDA graph's replay bitwise equal to the
+    first."""
+    f_k, g_k = lv.margin_rows_cuda(rows, mask, x, loss=loss, gamma=0.5)
+    f_2, g_2 = lv.margin_rows_cuda(rows, mask, x, loss=loss, gamma=0.5)
+    f_p, g_p = rows_plain(ref, loss, rows, mask, x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        with torch.cuda.graph(graph, stream=side):
+            f_g, g_g = lv.margin_rows_cuda(rows, mask, x, loss=loss,
+                                           gamma=0.5)
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    shape = tuple(rows.idx.shape) + (x.shape[1],)
+    if not (torch.equal(f_k, f_2) and torch.equal(g_k, g_2)):
+        fail(f"rows {loss} {shape}: a second call is not bitwise equal")
+    if not (torch.equal(f_k, f_g) and torch.equal(g_k, g_g)):
+        fail(f"rows {loss} {shape}: a CUDA graph's replay is not bitwise "
+             f"equal")
+    for lane in zero_lanes:
+        if float(f_k[lane]) != 0.0 or bool(torch.any(g_k[lane] != 0)):
+            fail(f"rows {loss} {shape}: all-zero-mask lane {lane} is not "
+                 f"exactly 0")
+    return max(max_err(torch, f_k, f_p, f"rows {loss} loss {shape}"),
+               max_err(torch, g_k, g_p, f"rows {loss} grad {shape}"))
+
+
+def rows_bounds(rows, W, d):
+    """(the benchmark's least time for an evaluation over these rows, in
+    ms: ``perfbench/metrics/margin_roofline.py`` eval_work, each nonzero,
+    label, x and gradient once; the kernel's own reads and writes in
+    bytes: ELL and CSC entries, labels and mask, col_ptr, x, gradient and
+    losses)."""
+    nnz = float(rows.idx.numel())
+    n_rows = float(rows.b.numel())
+    need = 8.0 * nnz + 4.0 * n_rows + 8.0 * W * d + 4.0 * W
+    ms, _ = bound_ms(need, 4.0 * nnz + 5.0 * n_rows)
+    csc = float(rows.col_ptr[:, -1].sum())
+    reads = (8.0 * nnz + 8.0 * csc + 8.0 * n_rows + 4.0 * W * (d + 1)
+             + 8.0 * W * d + 4.0 * W)
+    return ms, reads
+
+
+def phase_rows(torch, lv, ref, base):
+    """The rows mode on small ragged shapes, then at the paper's shapes:
+    each against its plain version, its CUDA-event time (per eager call,
+    and in a CUDA graph) beside the benchmark's bound, the plain sparse
+    path's time and the dense kernel's on the same rows densified."""
+    results = {}
+    worst = {"logistic": 0.0, "hinge": 0.0}
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for (W, N, k, d), zero in ROWS_SMALL:
+        rows, mask, x = rows_inputs(torch, base, W, N, k, d, zero,
+                                    seed=W + N + d)
+        for loss in worst:
+            worst[loss] = max(worst[loss], check_rows(
+                torch, lv, ref, loss, rows, mask, x, zero))
+        p = lv.rows_plan(W, N, d, n_sms)
+        say(f"[2] rows {(W, N, k, d)}: clusters of {p.cluster} x "
+            f"{p.threads} threads, {p.chunks} chunk(s) of {p.chunk_rows} "
+            f"rows, {p.smem_bytes} B of shared memory")
+        del rows, mask, x
+    say(f"[2] rows mode, small shapes held, each second call and graph "
+        f"replay bitwise equal, zero-mask lanes exactly 0: logistic "
+        f"{worst['logistic']:.2e}, hinge {worst['hinge']:.2e} (tolerance "
+        f"{PARITY_RTOL:g} x max(1, |plain|))")
+    n_samples, d = PAPER_KW["n_samples"], PAPER_KW["n_features"]
+    for W, k in ROWS_PAPER:
+        N = -(-n_samples // W)
+        rows, mask, x = rows_inputs(torch, base, W, N, k, d, (3,), seed=W)
+        p = lv.rows_plan(W, N, d, n_sms)
+        need_ms, reads = rows_bounds(rows, W, d)
+        dense = base.densify_sparse_rows(rows.idx.long(), rows.vals, d)
+        for loss in worst:
+            err = check_rows(torch, lv, ref, loss, rows, mask, x, (3,))
+            worst[loss] = max(worst[loss], err)
+
+            def kern():
+                lv.margin_rows_cuda(rows, mask, x, loss=loss, gamma=0.5)
+            ms_k = median_ms(torch, kern, 50, warmup=3)
+            ms_g = graph_ms(torch, kern, 50)
+            ms_p = median_ms(torch, lambda: rows_plain(ref, loss, rows, mask,
+                                                       x), 5)
+            ms_d = median_ms(torch, lambda: lv.margin_vjp_cuda(
+                dense, rows.b, mask, x, loss=loss, gamma=0.5), 5)
+            own_ms = reads / HBM_BYTES_PER_S * 1e3
+            res = dict(ms=ms_g, eager_ms=ms_k, plain_ms=ms_p, dense_ms=ms_d,
+                       bound_ms=need_ms, bound_by="bytes",
+                       own_bound_ms=own_ms, max_abs_err=worst[loss],
+                       shape=[W, N, k, d])
+            if W == PAPER_W:
+                results[f"{loss}_rows"] = res
+            else:
+                results[f"{loss}_rows"][f"w{W}"] = res
+            say(f"[2] rows {loss} at (W, N, k, d) = ({W}, {N}, {k}, {d}): "
+                f"max err {err:.2e}; kernel {ms_g * 1e3:.2f} us a call in a "
+                f"CUDA graph, {ms_k * 1e3:.2f} us eager ({lv.ROWS_BODY} "
+                f"body: clusters of {p.cluster} x {p.threads} threads, "
+                f"{p.chunks} chunk(s)); the rows' bound {need_ms * 1e3:.2f} "
+                f"us (eval_work: {need_ms / ms_g:.4f} of it), its own reads "
+                f"and writes {reads / 1e6:.1f} MB, {own_ms * 1e3:.2f} us "
+                f"({reads / ms_g / 1e9:.3f} TB/s); plain sparse path "
+                f"{ms_p:.3f} ms; dense kernel on the rows densified "
+                f"{ms_d:.3f} ms")
+        del rows, mask, x, dense
+        torch.cuda.empty_cache()
     return results
 
 
@@ -1285,7 +1452,8 @@ def phase_small(torch, api, SchedulerConfig, AdmmOptions, PoolConfig, lv, st):
                      "torch", "cuda")
     batched = small_run(*args, ENGINE_KW, ENGINE_W, ENGINE_ROUNDS,
                         "batched", "cuda", "cuda")
-    if lv.LAUNCHES["logistic"] == 0 or st.LAUNCHES["soft_threshold"] == 0:
+    if (lv.LAUNCHES["logistic_rows"] == 0
+            or st.LAUNCHES["soft_threshold"] == 0):
         fail("the batched kernel run launched no kernel")
     g1 = hold("engine instance loop/torch vs anchor", rsr(loop.trace),
               ENGINE_ANCHOR, ANCHOR_RTOL)
@@ -1372,7 +1540,7 @@ def phase_small_modes(torch, api, SchedulerConfig, AdmmOptions, PoolConfig,
         worst32 = max(worst32, hold(f"{label} float32 cuda vs CPU",
                                     rsr(card.trace), rsr(cpu.trace),
                                     ANCHOR_RTOL))
-    if lv.LAUNCHES["hinge"] == 0 or st.LAUNCHES["soft_threshold"] == 0:
+    if lv.LAUNCHES["hinge_rows"] == 0 or st.LAUNCHES["soft_threshold"] == 0:
         fail(f"the small svm runs launched no hinge or z-update kernel: "
              f"{lv.LAUNCHES}, {st.LAUNCHES}")
     say(f"[3] {', '.join(c[0] for c in SMALL_CASES)} ({ENGINE_ROUNDS} "
@@ -1459,7 +1627,8 @@ def phase_small_cluster(torch, api, problems, rt, AdmmOptions, lv, st):
     st.reset_launches()
     card = small_run(*args, f64, ENGINE_W, ENGINE_ROUNDS, "batched", "cuda",
                      "cuda")
-    n_margin, n_z = lv.LAUNCHES["logistic"], st.LAUNCHES["soft_threshold"]
+    n_margin, n_z = (lv.LAUNCHES["logistic_rows"],
+                     st.LAUNCHES["soft_threshold"])
     cpu = small_run(*args, f64, ENGINE_W, ENGINE_ROUNDS, "batched", "torch",
                     "cpu")
     g1 = hold("engine instance float64 kernel=cuda (card) vs kernel=torch "
@@ -1599,7 +1768,8 @@ def paper_run(torch, api, SchedulerConfig, problem, phase, kernel, lv, st):
         now = time.time()
         walls.append(now - t_last[0])
         t_last[0] = now
-        per_round.append((lv.LAUNCHES[loss], st.LAUNCHES["soft_threshold"]))
+        per_round.append((lv.LAUNCHES[f"{loss}_rows"],
+                          st.LAUNCHES["soft_threshold"]))
 
     lv.reset_launches()
     st.reset_launches()
@@ -1645,8 +1815,9 @@ def phase_paper(torch, api, problems, SchedulerConfig, lv, st, ref,
                 kernel_ms, phase, keep_rows=None):
     """Phase 4 (logreg) or 6 (svm): generate and stage the paper's data
     for W=64, run PAPER_ROUNDS rounds through ``api.run`` with
-    kernel="cuda", hold the margin kernel against its plain version on the
-    staged shards at the workers' last x, then the witness (the same
+    kernel="cuda" (the margin kernel's rows mode), hold that kernel against
+    its plain version on the staged rows at the workers' last x, then the
+    witness (the same
     rounds twice with kernel="torch", the plain sparse path on the card,
     whose two runs must agree bit for bit) and the control (the kernel path
     with ``control_mask``).  Returns the run's launch counts and its
@@ -1668,17 +1839,19 @@ def phase_paper(torch, api, problems, SchedulerConfig, lv, st, ref,
     if keep_rows is not None:
         keep_rows.update(problem._shard_cache)
     t0 = time.time()
-    (A, b_dense), mask = problem.kernel_batch_shards(PAPER_W)
+    rows, mask = problem.kernel_batch_shards(PAPER_W)
     torch.cuda.synchronize()
     t_stage = time.time() - t0
+    key = f"{loss}_rows"
     say(f"{tag} {name} at the paper's size: generated {kw['n_samples']} x "
         f"{kw['n_features']} (density {kw['density']}) in {t_gen:.2f} s; "
-        f"staged dense shards {tuple(A.shape)} ({A.numel() * 4 / 1e9:.2f} "
-        f"GB) in {t_stage:.2f} s")
+        f"staged the rows (ELL {tuple(rows.idx.shape)} and CSC "
+        f"{tuple(rows.csc_row.shape)}, {staged_gb(rows):.3f} GB) in "
+        f"{t_stage:.2f} s")
 
     res, walls, per_round = paper_run(torch, api, SchedulerConfig, problem,
                                       phase, "cuda", lv, st)
-    launches = {loss: lv.LAUNCHES[loss],
+    launches = {key: lv.LAUNCHES[key],
                 "soft_threshold": st.LAUNCHES["soft_threshold"]}
     before = (0, 0)
     for row, wall, counts in zip(res.trace, walls, per_round):
@@ -1689,11 +1862,11 @@ def phase_paper(torch, api, problems, SchedulerConfig, lv, st, ref,
                  f"z-update launches")
         busy = ""
         if kernel_ms:
-            t_k = (n_margin * kernel_ms[loss]
+            t_k = (n_margin * kernel_ms[key]
                    + n_z * kernel_ms["soft_threshold"]) / 1e3
             busy = (f" (launches x phase-2 kernel time: {n_margin} x "
-                    f"{kernel_ms[loss]:.3f} ms + {n_z} z-updates = "
-                    f"{t_k:.2f} s)")
+                    f"{kernel_ms[key]:.4f} ms + {n_z} z-updates = "
+                    f"{t_k:.3f} s)")
         say(f"{tag} round {row['k']}: wall {wall:.2f} s, {loss} launches "
             f"{n_margin}, z-update launches {n_z}{busy}, r_norm "
             f"{row['r_norm']:.6g}, s_norm {row['s_norm']:.6g}, rho "
@@ -1709,21 +1882,18 @@ def phase_paper(torch, api, problems, SchedulerConfig, lv, st, ref,
                 and row["inner_mean"] >= 1 and row["z_nnz"] >= 0):
             fail(f"bad trace row {row}")
 
-    # the staged shards: kernel against plain at the workers' last x
+    # the staged rows: kernel against plain at the workers' last x
     xs = res.scheduler.x.contiguous()
-    f_k, g_k = lv.margin_vjp_cuda(A, b_dense, mask, xs, loss=loss,
-                                  gamma=gamma)
-    f_p, g_p = (ref.logistic_vjp_ref(A, b_dense, mask, xs)
-                if loss == "logistic"
-                else ref.svm_vjp_ref(A, b_dense, mask, xs, gamma))
+    f_k, g_k = lv.margin_rows_cuda(rows, mask, xs, loss=loss, gamma=gamma)
+    f_p, g_p = rows_plain(ref, loss, rows, mask, xs, gamma)
     torch.cuda.synchronize()
-    err = max(max_err(torch, f_k, f_p, f"{loss} on the staged shards"),
-              max_err(torch, g_k, g_p, f"{loss} grad on the staged shards"))
+    err = max(max_err(torch, f_k, f_p, f"{loss} on the staged rows"),
+              max_err(torch, g_k, g_p, f"{loss} grad on the staged rows"))
     del f_k, g_k, f_p, g_p
     peak = torch.cuda.max_memory_allocated() / 1e9
     say(f"{tag} launches in the run: {launches} over {len(res.trace)} "
         f"rounds; peak device memory {peak:.2f} GB; kernel vs plain on the "
-        f"staged shards {err:.2e} (tolerance {PARITY_RTOL:g} x max(1, "
+        f"staged rows {err:.2e} (tolerance {PARITY_RTOL:g} x max(1, "
         f"|plain|)); final z_nnz {int((abs(z) > 0).sum())}")
 
     # the witness, twice (it sums in a fixed order: the two runs must agree
@@ -1735,10 +1905,10 @@ def phase_paper(torch, api, problems, SchedulerConfig, lv, st, ref,
                             "torch", lv, st)
     mask_ctrl = control_mask(mask)
     cut = int((mask - mask_ctrl).sum(dim=1).max())
-    problem._kernel_batch_cache[PAPER_W] = ((A, b_dense), mask_ctrl)
+    problem._kernel_batch_cache[PAPER_W] = (rows, mask_ctrl)
     control, _, _ = paper_run(torch, api, SchedulerConfig, problem, phase,
                               "cuda", lv, st)
-    problem._kernel_batch_cache[PAPER_W] = ((A, b_dense), mask)
+    problem._kernel_batch_cache[PAPER_W] = (rows, mask)
     rel, inner = witness_gaps(res.trace, witness.trace)
     s_rel, s_inner = witness_gaps(again.trace, witness.trace)
     c_rel, c_inner = witness_gaps(control.trace, witness.trace)
@@ -1779,12 +1949,12 @@ CLUSTER7 = dict(policy="drf", max_concurrent_jobs=2, max_active_workers=128,
                 share_provider=True)
 JOBS7 = (("alice", 4, 41), ("alice", 4, 42), ("bob", 6, 61), ("bob", 6, 62))
 PEAK_LIMIT_GB = 80.0
-KERNELS7 = ("logistic", "hinge", "soft_threshold")
+KERNELS7 = ("logistic_rows", "hinge_rows", "soft_threshold")
 
 
 def launch_counts(lv, st):
-    return {"logistic": lv.LAUNCHES["logistic"],
-            "hinge": lv.LAUNCHES["hinge"],
+    return {"logistic_rows": lv.LAUNCHES["logistic_rows"],
+            "hinge_rows": lv.LAUNCHES["hinge_rows"],
             "soft_threshold": st.LAUNCHES["soft_threshold"]}
 
 
@@ -1834,17 +2004,16 @@ def phase_cluster(torch, api, problems, rt, lv, st, solo, solo_launches,
     torch.cuda.synchronize()
     t_gen = time.time() - t0
     t0 = time.time()
-    staged = [p.kernel_batch_shards(PAPER_W)[0][0] for p in inst.values()]
+    staged = [p.kernel_batch_shards(PAPER_W)[0] for p in inst.values()]
     torch.cuda.synchronize()
     say(f"{tag} generated the paper's rows once in {t_gen:.2f} s (svm on "
-        f"logreg's shards); staged two dense batches "
-        f"{' and '.join(str(tuple(a.shape)) for a in staged)} "
-        f"({sum(a.numel() for a in staged) * 4 / 1e9:.2f} GB) in "
+        f"logreg's shards); staged them twice for the rows mode "
+        f"({sum(staged_gb(r) for r in staged):.3f} GB) in "
         f"{time.time() - t0:.2f} s")
     del staged
     for phase in (4, 6):
         if phase not in solo:
-            loss = PAPER_PATHS[phase][2]
+            loss = PAPER_PATHS[phase][2] + "_rows"
             lv.reset_launches()
             st.reset_launches()
             res = api.run(paper_spec(api, rt.SchedulerConfig, phase),
@@ -1880,6 +2049,7 @@ def phase_cluster(torch, api, problems, rt, lv, st, solo, solo_launches,
                  f"jobs' own {summed}")
         for job, phase in jobs:
             name, _, loss = PAPER_PATHS[phase]
+            loss += "_rows"
             rounds = per_job[job.job_id]
             n_margin = sum(d[loss] for _, d in rounds)
             n_z = sum(d["soft_threshold"] for _, d in rounds)
@@ -1900,8 +2070,8 @@ def phase_cluster(torch, api, problems, rt, lv, st, solo, solo_launches,
                     t_k = (d[loss] * kernel_ms[loss]
                            + d["soft_threshold"]
                            * kernel_ms["soft_threshold"]) / 1e3
-                    busy = (f" ({d[loss]} x {kernel_ms[loss]:.3f} ms = "
-                            f"{t_k:.2f} s of kernel, host share "
+                    busy = (f" ({d[loss]} x {kernel_ms[loss]:.4f} ms = "
+                            f"{t_k:.3f} s of kernel, host share "
                             f"{1 - t_k / w:.3f})")
                 parts.append(f"round {k} {w:.2f} s{busy}")
             say(f"{tag} {engine}: job {job.job_id} {job.tenant} {name}: "
@@ -2070,8 +2240,7 @@ def phase_small_newton(torch, api, problems, rt, AdmmOptions, lv, st):
     if legs["cuda", "newton.straggler"][0] != legs["cuda", "newton.clean"][0]:
         fail("bench_newton: the coded straggler leg's rounds differ from the "
              "clean leg's")
-    if lv.LAUNCHES != {"logistic": 0, "hinge": 0} or st.LAUNCHES[
-            "soft_threshold"] != 0:
+    if any(lv.LAUNCHES.values()) or st.LAUNCHES["soft_threshold"] != 0:
         fail(f"the second-order runs launched an ADMM kernel: {lv.LAUNCHES}"
              f", {st.LAUNCHES}")
     say("[3] bench_newton's configuration (n=1024, d=64, W=64, float32), "
@@ -4626,41 +4795,44 @@ def drive_regime(torch, api, rt, ck, AdmmOptions, problem, drive, fields,
     return sched, walls, respawned, notes
 
 
-def check_shards(torch, data_mod, base, problem, keys):
+def staged_lane(rows, w, n):
+    """Lane w's first n rows of the rows staging, as (idx int64, vals, b):
+    the gather-format shard they were staged from."""
+    return (rows.idx[w, :n].long(), rows.vals[w, :n], rows.b[w, :n])
+
+
+def check_shards(torch, data_mod, problem, keys):
     """Each (wid, W) in ``keys``: the shard generated anew equal to the one
-    the run solved (sparse) and to its lane of the staged dense batch."""
+    the run solved and to its lane of the staged rows."""
     for wid, W in sorted(keys):
         fresh = data_mod.worker_shard_sparse(problem.cfg, wid, W,
                                              device="cuda")
         held = problem._shard_cache[(wid, W)]
-        (A, b), _ = problem._kernel_batch_cache[W]
-        n = fresh[0].shape[0]
-        dense = base.densify_sparse_rows(fresh[0], fresh[1], A.shape[-1])
+        rows, _ = problem._kernel_batch_cache[W]
+        lane = staged_lane(rows, wid, fresh[0].shape[0])
         if not (all(torch.equal(f, h) for f, h in zip(fresh, held))
-                and torch.equal(A[wid, :n], dense)
-                and torch.equal(b[wid, :n], fresh[2])):
+                and all(torch.equal(f, s) for f, s in zip(fresh, lane))):
             fail(f"[14b] worker {wid} of {W}: its regenerated shard differs "
                  f"from the one it replaced")
-        del dense
 
 
 def check_restaged(torch, problem, wide, narrow):
     """The shards of ``narrow`` workers against pairs of ``wide`` workers'
     (narrow = wide / 2): each leaf of the sparse shards and each lane of
-    the staged dense batch equal to the two rows it joins."""
-    (A_w, b_w), _ = problem._kernel_batch_cache[wide]
-    (A_n, b_n), _ = problem._kernel_batch_cache[narrow]
+    the staged rows equal to the two it joins."""
+    rows_w, _ = problem._kernel_batch_cache[wide]
+    rows_n, _ = problem._kernel_batch_cache[narrow]
     for w in range(narrow):
         lo, hi = (problem._shard_cache[(2 * w + j, wide)] for j in (0, 1))
         got = problem._shard_cache[(w, narrow)]
         n0, n1 = lo[0].shape[0], hi[0].shape[0]
+        joined = [torch.cat([a, c]) for a, c in zip(
+            staged_lane(rows_w, 2 * w, n0), staged_lane(rows_w, 2 * w + 1,
+                                                        n1))]
         if not (all(torch.equal(g, torch.cat([a, c]))
                     for g, a, c in zip(got, lo, hi))
-                and torch.equal(A_n[w, :n0], A_w[2 * w, :n0])
-                and torch.equal(A_n[w, n0:n0 + n1], A_w[2 * w + 1, :n1])
-                and torch.equal(b_n[w, :n0 + n1],
-                                torch.cat([b_w[2 * w, :n0],
-                                           b_w[2 * w + 1, :n1]]))):
+                and all(torch.equal(s, j) for s, j in zip(
+                    staged_lane(rows_n, w, n0 + n1), joined))):
             fail(f"[14b] worker {w} of {narrow}: its re-staged shard is not "
                  f"workers {2 * w} and {2 * w + 1} of {wide}")
 
@@ -4675,7 +4847,6 @@ def phase_twins_paper(torch, api, problems, rt, AdmmOptions, lv, st, rows):
     and z-update launches."""
     from repro_torch import checkpoint as ck
     from repro_torch.data import logreg as data_mod
-    from repro_torch.problems import base
     t0 = time.time()
     problem = problems.make("logreg", device="cuda", **PAPER_KW)
     problem._shard_cache.update(rows)
@@ -4684,15 +4855,16 @@ def phase_twins_paper(torch, api, problems, rt, AdmmOptions, lv, st, rows):
     say(f"[14b] the paper's instance at W={TWIN_W}, its shards "
         f"{'from phase 4' if rows else 'generated here'}, staged in "
         f"{time.time() - t0:.1f} s")
-    totals = {"logistic": 0, "soft_threshold": 0}
+    totals = {"logistic_rows": 0, "soft_threshold": 0}
     for name, (drive, fields) in TWIN_REGIMES.items():
         torch.cuda.reset_peak_memory_stats()
         lv.reset_launches()
         st.reset_launches()
         sched, walls, respawned, notes = drive_regime(
             torch, api, rt, ck, AdmmOptions, problem, drive, fields, "cuda")
-        n_margin, n_z = lv.LAUNCHES["logistic"], st.LAUNCHES["soft_threshold"]
-        totals["logistic"] += n_margin
+        n_margin = lv.LAUNCHES["logistic_rows"]
+        n_z = st.LAUNCHES["soft_threshold"]
+        totals["logistic_rows"] += n_margin
         totals["soft_threshold"] += n_z
         peak = torch.cuda.max_memory_allocated() / 1e9
         witness, w_walls, _, _ = drive_regime(
@@ -4709,7 +4881,7 @@ def phase_twins_paper(torch, api, problems, rt, AdmmOptions, lv, st, rows):
             fail(f"[14b] {name}: peak device memory {peak:.2f} GB")
         extra = ""
         if respawned:
-            check_shards(torch, data_mod, base, problem, respawned)
+            check_shards(torch, data_mod, problem, respawned)
             extra += (f"; {sched.n_respawns} respawns, the shards of "
                       f"{len(respawned)} workers generated anew equal "
                       f"(sparse and staged)")
@@ -4918,6 +5090,7 @@ def main(argv=None):
     t0 = time.time()
     if 2 in phases:
         results.update(phase_parity(torch, lv, st, ref))
+        results.update(phase_rows(torch, lv, ref, problems.base))
         results.update(phase_attention_parity(torch, fa, dec, attention, F))
         say(f"[2] phase wall {time.time() - t0:.1f} s")
     t0 = time.time()
@@ -4934,7 +5107,8 @@ def main(argv=None):
     kernel_ms = {k: r["ms"] for k, r in results.items()}
     # each main path's launches, read around its own run: kernel -> phase
     # -> count
-    by_phase = {k: {} for k in ("logistic", "hinge", "soft_threshold",
+    by_phase = {k: {} for k in ("logistic", "hinge", "logistic_rows",
+                                "hinge_rows", "soft_threshold",
                                 "flash_attention", "flash_attention_noncausal",
                                 "decode_attention",
                                 "decode_attention_partial")}
@@ -5022,9 +5196,15 @@ def main(argv=None):
     # (name, source, TPU kernel, on a main path, body: the design that ran)
     meta = {
         "logistic": ("margin_vjp_logistic", "logistic_vjp",
-                     "src/repro/kernels/logistic_vjp.py:41", True, lv.BODY),
+                     "src/repro/kernels/logistic_vjp.py:41", False, lv.BODY),
         "hinge": ("margin_vjp_hinge", "logistic_vjp",
-                  "src/repro/kernels/logistic_vjp.py:41", True, lv.BODY),
+                  "src/repro/kernels/logistic_vjp.py:41", False, lv.BODY),
+        "logistic_rows": ("margin_rows_logistic", "logistic_vjp",
+                          "src/repro/kernels/logistic_vjp.py:41", True,
+                          lv.ROWS_BODY),
+        "hinge_rows": ("margin_rows_hinge", "logistic_vjp",
+                       "src/repro/kernels/logistic_vjp.py:41", True,
+                       lv.ROWS_BODY),
         "soft_threshold": ("soft_threshold", "soft_threshold",
                            "src/repro/kernels/soft_threshold.py:20", True,
                            st.BODY),
@@ -5046,7 +5226,7 @@ def main(argv=None):
     kernels = []
     for key, (name, src, replaces, on_path, body) in meta.items():
         r = results[key]
-        if not by_phase[key] or 0 in by_phase[key].values():
+        if on_path and (not by_phase[key] or 0 in by_phase[key].values()):
             fail(f"{name}: a main path launched it no time: {by_phase[key]}")
         kernels.append(dict(
             name=name, route="cuda", source=source.format(src),
@@ -5057,7 +5237,8 @@ def main(argv=None):
             shape=r["shape"], launches_by_phase=by_phase[key],
             **{k: r[k] for k in ("eager_ms", "eager_plain_ms", "read_ms",
                                  "floor_ms", "ms_1e6", "bound_ms_1e6",
-                                 "paths", "whole_ms")
+                                 "paths", "whole_ms", "dense_ms",
+                                 "own_bound_ms", "w256")
                if k in r}))
     say(card)
     say(json.dumps({"kernels": kernels}))

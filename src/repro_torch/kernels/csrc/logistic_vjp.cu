@@ -50,6 +50,44 @@
 //     replayed CUDA graph finds it zeroed).  A lane that one block covers
 //     alone is written directly.
 // No float atomics anywhere, so a run is bitwise reproducible.
+//
+// Rows mode (margin_rows, entry margin_rows_f32): the same loss and
+// gradient over the same rows held sparse, as the batched solver stages
+// them (problems/base.py stage_sparse_rows), and the mode the solver's
+// kernel="cuda" runs.  It too replaces repro/kernels/logistic_vjp.py:
+// _margin_kernel, whose dense tiles stream every zero of A: the paper's
+// rows are 0.1% dense, so the dense mode reads 24 GB an evaluation where
+// the rows need 55.6 MB.  Per lane w:
+//   * ELL rows: idx and vals (N, k), a fixed k nonzeros a row, with b and
+//     the mask;
+//   * a CSC copy: col_ptr (d + 1), and for each nonzero its row and value,
+//     ordered by (column, row).
+// Bound on an H100: memory, at about 2 x 8 B a nonzero (its ELL and CSC
+// entries) plus b, mask, x, the gradient and col_ptr: 105 MB at W = 64
+// (31 us at 3.35 TB/s) against the 55.6 MB (16.6 us) the rows need, which
+// the benchmark's margin_roofline counts.  Design: one launch, one cluster
+// of C blocks per lane (C from W and the SM count: 2 at W = 64 on 132 SMs,
+// 1 at W = 256):
+//   * Forward.  Each block holds x_w in shared memory and takes a
+//     contiguous 1/C of the lane's rows, a row a thread; it writes each
+//     row's coefficient c_n = mask_n l'(b_n ax_n) to its shared memory,
+//     and each thread adds its rows' losses in double precision (where the
+//     dense body keeps a compensated float sum: a float running sum over
+//     thousands of rows drifts enough to move FISTA's tests).
+//   * Exchange.  After a cluster barrier each block copies the other
+//     blocks' coefficients from distributed shared memory into its own
+//     array; a second barrier frees them.  Rank 0 sums the blocks' losses,
+//     a fixed shuffle tree in each warp and then warps and blocks in order.
+//   * Gradient.  Block c owns the columns [c cols, (c + 1) cols), a column
+//     a thread: grad[w, j] is the sum of c_row val over the column's CSC
+//     entries, in CSC order, read from shared memory.
+//   * A lane whose coefficients and x do not fit shared memory at once
+//     goes in chunks of rows: the forward, exchange and gradient per
+//     chunk, each column resuming from its running sum, its chunk's
+//     entries found by binary search on the rows.
+// No float atomics, no global scratch and no counters: each lane's sums
+// run in one fixed order (bitwise reproducible), and a CUDA graph replays
+// the launch as it is.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -410,7 +448,244 @@ cudaError_t dispatch(const Params& p, int threads, int chunks, cudaStream_t st) 
   }
 }
 
+// ---- rows mode ---------------------------------------------------------------
+
+constexpr int kRowsMaxThreads = 1024;
+constexpr int kRowsUnroll = 8;        // loads issued together per thread
+
+struct RowsParams {
+  const int* idx;          // (W, N, k) column indices
+  const float* vals;       // (W, N, k)
+  const float* b;          // (W, N)
+  const float* mask;       // (W, N)
+  const int* col_ptr;      // (W, D + 1)
+  const int* csc_row;      // (W, S) row within the lane
+  const float* csc_val;    // (W, S)
+  const float* x;          // (W, D)
+  float* loss;             // (W,)
+  float* grad;             // (W, D)
+  long long S;
+  int N, k, D;
+  int cluster;             // C: blocks per lane
+  int chunk_rows;          // rows per chunk (N when the lane fits)
+  int x_floats;            // x's slot in shared memory, D rounded up to 4
+  int loss_kind;
+  float gamma;
+};
+
+// this block's shared address ``addr`` in block ``rank`` of the cluster
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote) : "r"(addr), "r"(rank));
+  return remote;
+}
+
+__device__ __forceinline__ float ld_dsmem_f32(uint32_t remote) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote));
+  return v;
+}
+
+__device__ __forceinline__ double ld_dsmem_f64(uint32_t remote) {
+  double v;
+  asm volatile("ld.shared::cluster.f64 %0, [%1];\n" : "=d"(v) : "r"(remote));
+  return v;
+}
+
+// the first e in [lo, hi) whose row is at least r (rows ascend)
+__device__ __forceinline__ int first_row_at(const int* rows, int lo, int hi,
+                                            int r) {
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(rows + mid) < r) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(kRowsMaxThreads, 1)
+margin_rows(const RowsParams p) {
+  extern __shared__ __align__(16) float rows_smem[];
+  __shared__ double warp_loss[kRowsMaxThreads / 32];
+  float* xs = rows_smem;
+  float* coef = rows_smem + p.x_floats;
+
+  const int T = blockDim.x;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int n_warps = T >> 5;
+  const int C = p.cluster;
+  const int rank = blockIdx.x % C;
+  const long long w = blockIdx.x / C;
+  const int N = p.N, k = p.k, D = p.D;
+  const int cols = (D + C - 1) / C;
+  const int col0 = min(D, rank * cols), col1 = min(D, col0 + cols);
+  const int* idx = p.idx + w * N * k;
+  const float* vals = p.vals + w * N * k;
+  const float* bw = p.b + w * N;
+  const float* mw = p.mask + w * N;
+  const int* ptr = p.col_ptr + w * (D + 1);
+  const int* crow = p.csc_row + w * p.S;
+  const float* cval = p.csc_val + w * p.S;
+  float* gw = p.grad + w * D;
+  const bool chunked = p.chunk_rows < N;
+
+  for (int j = tid; j < D; j += T) xs[j] = __ldg(p.x + w * D + j);
+  double loss_acc = 0.0;          // this thread's rows, in row order
+
+  for (int c0 = 0; c0 < N; c0 += p.chunk_rows) {
+    const int n = min(p.chunk_rows, N - c0);
+    const int q = (n + C - 1) / C;          // rows per block of the chunk
+    const int r0 = min(n, rank * q), r1 = min(n, r0 + q);
+    const bool last = c0 + n == N;
+    // x is in place; the previous chunk's gradient is done with coef
+    __syncthreads();
+
+    // forward: a row a thread
+    for (int i = r0 + tid; i < r1; i += T) {
+      const long long base = (long long)(c0 + i) * k;
+      float ax = 0.f;
+      for (int j0 = 0; j0 < k; j0 += kRowsUnroll) {
+        int ci[kRowsUnroll];
+        float vi[kRowsUnroll];
+#pragma unroll
+        for (int u = 0; u < kRowsUnroll; ++u) {
+          const bool ok = j0 + u < k;
+          ci[u] = ok ? __ldg(idx + base + j0 + u) : 0;
+          vi[u] = ok ? __ldg(vals + base + j0 + u) : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < kRowsUnroll; ++u)
+          if (j0 + u < k) ax += vi[u] * xs[ci[u]];
+      }
+      const float mi = __ldg(mw + c0 + i);
+      float val, dl;
+      row_loss(p.loss_kind, p.gamma, __ldg(bw + c0 + i), ax, &val, &dl);
+      coef[i] = mi * dl;
+      loss_acc += (double)(mi * val);
+    }
+    if (last) {
+      double s = loss_acc;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      if (lane == 0) warp_loss[warp] = s;
+    }
+
+    // exchange: every block gets the chunk's coefficients; rank 0 the loss
+    if (C > 1) {
+      hopper::cluster_sync();
+      const uint32_t base = hopper::smem_u32(coef);
+      for (int i0 = tid; i0 < n; i0 += 4 * T) {
+        float v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int i = i0 + u * T;
+          const int owner = i < n ? i / q : rank;
+          v[u] = owner != rank
+                     ? ld_dsmem_f32(cluster_addr(base + 4u * i, owner))
+                     : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int i = i0 + u * T;
+          if (i < n && i / q != rank) coef[i] = v[u];
+        }
+      }
+      if (last && rank == 0 && tid == 0) {
+        const uint32_t at = hopper::smem_u32(warp_loss);
+        double s = 0.0;
+        for (int r = 0; r < C; ++r)
+          for (int v = 0; v < n_warps; ++v)
+            s += ld_dsmem_f64(cluster_addr(at + 8u * v, r));
+        p.loss[w] = (float)s;
+      }
+      // no block overwrites or leaves while another still reads it
+      hopper::cluster_sync();
+    } else {
+      __syncthreads();
+      if (last && tid == 0) {
+        double s = 0.0;
+        for (int v = 0; v < n_warps; ++v) s += warp_loss[v];
+        p.loss[w] = (float)s;
+      }
+    }
+
+    // gradient: a column a thread, its entries in CSC order
+    for (int j = col0 + tid; j < col1; j += T) {
+      int lo = __ldg(ptr + j), hi = __ldg(ptr + j + 1);
+      if (chunked) {
+        lo = first_row_at(crow, lo, hi, c0);
+        hi = first_row_at(crow, lo, hi, c0 + n);
+      }
+      float g = c0 == 0 ? 0.f : gw[j];
+      for (int e0 = lo; e0 < hi; e0 += kRowsUnroll) {
+        int ri[kRowsUnroll];
+        float vi[kRowsUnroll];
+#pragma unroll
+        for (int u = 0; u < kRowsUnroll; ++u) {
+          const bool ok = e0 + u < hi;
+          ri[u] = ok ? __ldg(crow + e0 + u) - c0 : 0;
+          vi[u] = ok ? __ldg(cval + e0 + u) : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < kRowsUnroll; ++u)
+          if (e0 + u < hi) g += coef[ri[u]] * vi[u];
+      }
+      gw[j] = g;
+    }
+  }
+}
+
 }  // namespace
+
+// The rows mode.  All pointers are device pointers; the plan (cluster,
+// threads, chunk_rows) comes from the wrapper's ``rows_plan``.  S is the
+// CSC arrays' stride per lane.  Returns the launch's CUDA error code (0 on
+// success).
+extern "C" int margin_rows_f32(const int* idx, const float* vals,
+                               const float* b, const float* mask,
+                               const int* col_ptr, const int* csc_row,
+                               const float* csc_val, const float* x,
+                               float* loss, float* grad, int W, int N, int k,
+                               int D, long long S, int cluster, int threads,
+                               int chunk_rows, int loss_kind, float gamma,
+                               void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (W == 0) return 0;
+  if (N == 0) {
+    cudaMemsetAsync(loss, 0, sizeof(float) * (size_t)W, st);
+    cudaMemsetAsync(grad, 0, sizeof(float) * (size_t)W * D, st);
+    return (int)cudaGetLastError();
+  }
+  if (threads % 32 || threads < 32 || threads > kRowsMaxThreads ||
+      cluster < 1 || cluster > 8 || (cluster & (cluster - 1)) ||
+      chunk_rows < 1 || k < 0 || D < 1 || S < 1)
+    return (int)cudaErrorInvalidValue;
+  const int x_floats = (D + 3) / 4 * 4;
+  RowsParams p{idx, vals, b, mask, col_ptr, csc_row, csc_val, x, loss, grad,
+               S, N, k, D, cluster, chunk_rows < N ? chunk_rows : N, x_floats,
+               loss_kind, gamma};
+  const size_t smem = sizeof(float) * ((size_t)x_floats + p.chunk_rows);
+  cudaError_t e = cudaFuncSetAttribute(
+      margin_rows, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)W * cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, margin_rows, p);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
 
 // All pointers are device pointers.  The plan (groups, cluster, cols,
 // threads, chunks, rows_per_stage, stages) and the loader (bulk) come from

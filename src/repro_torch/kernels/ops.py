@@ -9,7 +9,9 @@ plain version on either device.
 The margin wrappers take a leading worker axis: A (W, N, D), b and mask (W, N),
 x (W, D) give (loss (W,), grad (W, D)); the unbatched forms drop W.  Shards
 are staged unpadded; the kernels mask ragged edges themselves, so no call
-copies A.
+copies A.  The ``_rows`` twins take the same rows sparse, as
+``problems.base.SparseRows`` (what the batched solver stages for
+``kernel="cuda"``), and launch the margin kernel's rows mode.
 
 The attention kernels have no backward and autograd does not see a ctypes
 launch: on the card, ``flash_attention`` and ``decode_attention`` raise when
@@ -113,6 +115,53 @@ def fused_svm_vjp(A, b, x, *, gamma: float, mask=None):
     """Smoothed-hinge twin of ``fused_logistic_vjp`` (``gamma`` the
     smoothing width).  Same shapes, batching and masking."""
     return _margin(A, b, x, mask, loss="hinge", gamma=float(gamma))
+
+
+def rows_work(rows) -> float:
+    """A rows-mode evaluation's operations: a multiply-add for the margin
+    and one for the gradient per stored nonzero, 5 a row (the loss, its
+    derivative and the mask)."""
+    W, N, k = rows.idx.shape
+    return 4.0 * W * N * k + 5.0 * W * N
+
+
+def _margin_rows(rows, x, mask, *, loss: str, gamma: float):
+    single = rows.idx.dim() == 2
+    if single:
+        rows = type(rows)(*(t[None] for t in rows))
+        x = x[None]
+        mask = None if mask is None else mask[None]
+    if mask is None:
+        mask = torch.ones(rows.b.shape, dtype=torch.float32, device=x.device)
+    # float32 whatever the caller's dtype, as the dense entries: the rows
+    # are staged in float32 once, so only x (and a caller's mask) is cast
+    mask, x = mask.to(torch.float32), x.to(torch.float32)
+    if x.is_cuda:
+        f, g = lv_k.margin_rows_cuda(rows, mask.contiguous(), x.contiguous(),
+                                     loss=loss, gamma=gamma)
+        if KERNEL_HOOKS:          # FISTA calls this every evaluation
+            _report(f"margin_rows_{loss}", rows_work(rows),
+                    _nbytes(*rows, mask, x, f, g))
+    elif loss == "logistic":
+        f, g = ref.logistic_vjp_rows_ref(rows.idx, rows.vals, rows.b, mask, x)
+    else:
+        f, g = ref.svm_vjp_rows_ref(rows.idx, rows.vals, rows.b, mask, x,
+                                    gamma)
+    return (f[0], g[0]) if single else (f, g)
+
+
+def fused_logistic_vjp_rows(rows, x, *, mask=None):
+    """``fused_logistic_vjp`` over sparse rows: ``rows`` a
+    ``problems.base.SparseRows`` ((W, N, k) rows, or (N, k) unbatched),
+    x (W, d) or (d,), an optional {0,1} row mask.  On the card the margin
+    kernel's rows mode, one launch; on the CPU its plain version (gather
+    and ``add_at``).  Float32 results for any input dtype."""
+    return _margin_rows(rows, x, mask, loss="logistic", gamma=0.0)
+
+
+def fused_svm_vjp_rows(rows, x, *, gamma: float, mask=None):
+    """Smoothed-hinge twin of ``fused_logistic_vjp_rows``."""
+    return _margin_rows(rows, x, mask, loss="hinge", gamma=float(gamma))
 
 
 def logistic_value_and_grad(A, b):

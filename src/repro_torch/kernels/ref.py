@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import prox as prox_mod
+from repro_torch.data.logreg import add_at, lane_flat_indices
 from repro_torch.models import attention as attn_mod
 
 
@@ -41,6 +42,55 @@ def svm_vjp_ref(a, b, mask, x, gamma: float):
     c = mask * dldm * b
     loss = torch.sum(mask * val, dim=-1)
     return loss, (c[..., None, :] @ a)[..., 0, :]
+
+
+def _rows_margins(idx, vals, x):
+    """Each row's <a_n, x>: idx, vals (W, N, k), x (W, d) -> (W, N),
+    summed over the row's nonzeros in the order the row lists them, as
+    the kernel's rows mode sums them."""
+    flat = idx.reshape(idx.shape[0], -1).to(torch.int64)
+    prod = vals * x.gather(1, flat).view(idx.shape)
+    ax = torch.zeros(prod.shape[:-1], dtype=prod.dtype, device=prod.device)
+    for j in range(prod.shape[-1]):
+        ax = ax + prod[..., j]
+    return ax
+
+
+def _rows_grad(idx, vals, c, d):
+    """sum_n c_n a_n per lane, by ``add_at`` in row order: (W, d)."""
+    grad = torch.zeros((idx.shape[0], d), dtype=vals.dtype,
+                       device=vals.device)
+    contrib = (c[..., None] * vals).reshape(-1)
+    return add_at(grad, lane_flat_indices(idx.to(torch.int64), d), contrib)
+
+
+def logistic_vjp_rows_ref(idx, vals, b, mask, x):
+    """``logistic_vjp_ref`` over sparse rows, as the margin kernel's rows
+    mode takes them: idx, vals (W, N, k), b and mask (W, N), x (W, d) ->
+    (loss (W,), grad (W, d)).  The masked gather and ``add_at`` of
+    ``LogRegProblem._masked_loss_value_and_grad``, its margins summed in
+    the kernel's order; duplicate indices in a row add up."""
+    margins = -b * _rows_margins(idx, vals, x)
+    loss = torch.sum(mask * torch.logaddexp(torch.zeros_like(margins),
+                                            margins), dim=-1)
+    c = mask * (-b * torch.sigmoid(margins))
+    return loss, _rows_grad(idx, vals, c, x.shape[-1])
+
+
+def svm_vjp_rows_ref(idx, vals, b, mask, x, gamma: float):
+    """Smoothed-hinge twin of ``logistic_vjp_rows_ref``: the masked gather
+    and ``add_at`` of ``SVMProblem._masked_loss_value_and_grad``."""
+    m = b * _rows_margins(idx, vals, x)
+    one = torch.ones((), dtype=m.dtype, device=m.device)
+    zero = torch.zeros((), dtype=m.dtype, device=m.device)
+    val = torch.where(m >= one, zero,
+                      torch.where(m <= one - gamma, one - m - gamma / 2,
+                                  (one - m) ** 2 / (2 * gamma)))
+    dldm = torch.where(m >= one, zero,
+                       torch.where(m <= one - gamma, -one,
+                                   -(one - m) / gamma))
+    loss = torch.sum(mask * val, dim=-1)
+    return loss, _rows_grad(idx, vals, mask * dldm * b, x.shape[-1])
 
 
 def softmax_vjp_ref(a, y, mask, X):

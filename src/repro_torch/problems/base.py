@@ -23,7 +23,7 @@ the scheduler builds for it, live there.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional, Protocol, Tuple, Union
+from typing import Callable, Dict, NamedTuple, Optional, Protocol, Tuple, Union
 
 import numpy as np
 import torch
@@ -132,6 +132,73 @@ def densify_sparse_rows(idx: torch.Tensor, vals: torch.Tensor,
     return add_at(a, flat, vals.reshape(-1))
 
 
+class SparseRows(NamedTuple):
+    """Sparse rows as the margin kernel's rows mode reads them, W lanes:
+    the rows in ELL form, a fixed k nonzeros a row (``idx`` int32 column
+    indices and ``vals`` float32, (W, N, k); a padded row all zero), their
+    labels ``b`` (W, N) float32, and a column-major copy of each lane
+    (CSC): lane w's entries of column j are ``csc_row[w, e]`` (the row
+    within the lane, int32) and ``csc_val[w, e]`` (float32) for e in
+    [col_ptr[w, j], col_ptr[w, j + 1]), by row.  ``col_ptr`` (W, d + 1)
+    int32; the CSC arrays (W, S), S the most entries of any lane, the
+    rest zero.  The unbatched form drops W."""
+    idx: torch.Tensor
+    vals: torch.Tensor
+    b: torch.Tensor
+    col_ptr: torch.Tensor
+    csc_row: torch.Tensor
+    csc_val: torch.Tensor
+
+
+def stage_sparse_rows(idx: torch.Tensor, vals: torch.Tensor, b: torch.Tensor,
+                      mask: torch.Tensor, d: int) -> SparseRows:
+    """Stacked gather-format rows (idx, vals (W, N, k), b and the row mask
+    (W, N)) -> ``SparseRows`` on their own device.  The CSC copy holds the
+    entries of the rows the mask keeps, ordered stably by (column, row),
+    with duplicate indices within a row summed into one entry in the
+    order the row lists them (as ``densify_sparse_rows`` sums them); the
+    ELL arrays keep every row as given.  Values are float32: a float64
+    problem's values are float32 draws widened, so nothing rounds."""
+    W, N, k = idx.shape
+    dev = idx.device
+    if W * N * k and (int(idx.min()) < 0 or int(idx.max()) >= d):
+        raise ValueError(f"column indices must lie in [0, {d})")
+    if N * k >= 2 ** 31 or d >= 2 ** 31:
+        raise ValueError(f"int32 indices cannot address (N, k, d) = "
+                         f"{(N, k, d)}")
+    live = (mask != 0)[..., None].expand(W, N, k).reshape(-1)
+    lane = torch.arange(W, device=dev).view(W, 1, 1).expand(W, N, k)
+    row = torch.arange(N, device=dev).view(1, N, 1).expand(W, N, k)
+    key = ((lane.reshape(-1) * d + idx.reshape(-1).to(torch.int64)) * N
+           + row.reshape(-1))[live]
+    key, order = torch.sort(key, stable=True)
+    merged = vals.reshape(-1).to(torch.float32)[live][order]
+    key, inv = torch.unique_consecutive(key, return_inverse=True)
+    if key.numel() < inv.numel():
+        # a row lists an index twice.  The generators never do, and the
+        # first add_at of a process took 13 s on an H100 (its sort-based
+        # accumulate), so rows without repeats skip it
+        merged = add_at(torch.zeros(key.shape, dtype=torch.float32,
+                                    device=dev), inv, merged)
+    lane_col = key // N
+    lane_of = lane_col // d
+    col_ptr = torch.zeros((W, d + 1), dtype=torch.int64, device=dev)
+    col_ptr[:, 1:] = torch.cumsum(
+        torch.bincount(lane_col, minlength=W * d).view(W, d), dim=1)
+    per_lane = col_ptr[:, -1]
+    pos = (torch.arange(key.numel(), device=dev)
+           - (torch.cumsum(per_lane, 0) - per_lane)[lane_of])
+    S = max(1, int(per_lane.max())) if W else 1
+    csc_row = torch.zeros((W, S), dtype=torch.int32, device=dev)
+    csc_val = torch.zeros((W, S), dtype=torch.float32, device=dev)
+    csc_row[lane_of, pos] = (key % N).to(torch.int32)
+    csc_val[lane_of, pos] = merged
+    return SparseRows(idx.to(torch.int32).contiguous(),
+                      vals.to(torch.float32).contiguous(),
+                      b.to(torch.float32).contiguous(),
+                      col_ptr.to(torch.int32), csc_row, csc_val)
+
+
 def carry_shards(problem, shards: Dict[Tuple[int, int], Tuple]) -> None:
     """Seed ``problem``'s shard cache from numpy shards, keyed (wid, W):
     integer leaves become int64, float leaves the problem's dtype, all on
@@ -143,8 +210,8 @@ def carry_shards(problem, shards: Dict[Tuple[int, int], Tuple]) -> None:
                 else t.to(problem.dtype))
     for key, shard in shards.items():
         problem._shard_cache[key] = tuple(leaf(a) for a in shard)
-    # whatever was built from the old shards goes: stacked batches, dense
-    # staging, lasso's Gram factors
+    # whatever was built from the old shards goes: stacked batches, the
+    # kernel's staging, lasso's Gram factors
     problem._batch_cache = None
     problem._kernel_batch_cache = None
     getattr(problem, "_factor_cache", {}).clear()
@@ -152,20 +219,38 @@ def carry_shards(problem, shards: Dict[Tuple[int, int], Tuple]) -> None:
 
 def dense_kernel_batch(problem, n_workers: int) -> Tuple:
     """The dense twin of ``batch_shards`` for workloads on sparse
-    gather-format shards (idx, vals, b) — logreg and svm: the margin kernel
-    streams dense rows, so the stacked batch is scattered into (W, Nmax, d)
-    rows on the device once per fleet size (cached; a new W re-densifies).
-    The kernel runs in float32 for every problem dtype, so A, b and the mask
-    are staged in float32 (a float64 problem's values are float32 draws
-    widened, so nothing rounds).  Returns ((A, b), mask)."""
+    gather-format shards (idx, vals, b) — logreg and svm — for the dense
+    margin kernel (``ops.fused_logistic_vjp`` / ``fused_svm_vjp``): the
+    stacked batch scattered into (W, Nmax, d) rows on the device, cached
+    per fleet size beside the rows staging.  The kernel runs in float32
+    for every problem dtype, so A, b and the mask are staged in float32 (a
+    float64 problem's values are float32 draws widened, so nothing
+    rounds).  Returns ((A, b), mask)."""
+    if problem._kernel_batch_cache is None:
+        problem._kernel_batch_cache = {}
+    key = ("dense", n_workers)
+    if key not in problem._kernel_batch_cache:
+        (idx, vals, b), mask = problem.batch_shards(n_workers)
+        dense = densify_sparse_rows(idx, vals.to(torch.float32),
+                                    problem.n_features)
+        problem._kernel_batch_cache[key] = (
+            (dense, b.to(torch.float32)), mask.to(torch.float32))
+    return problem._kernel_batch_cache[key]
+
+
+def sparse_kernel_batch(problem, n_workers: int) -> Tuple:
+    """What ``kernel_batch_shards`` gives for workloads on sparse
+    gather-format shards (idx, vals, b) — logreg and svm: the stacked
+    batch staged once per fleet size as ``SparseRows`` (see
+    ``stage_sparse_rows``) on the device, cached; a new W stages anew.
+    Returns (rows, mask), the mask float32."""
     if problem._kernel_batch_cache is None:
         problem._kernel_batch_cache = {}
     if n_workers not in problem._kernel_batch_cache:
         (idx, vals, b), mask = problem.batch_shards(n_workers)
-        dense = densify_sparse_rows(idx, vals.to(torch.float32),
-                                    problem.n_features)
         problem._kernel_batch_cache[n_workers] = (
-            (dense, b.to(torch.float32)), mask.to(torch.float32))
+            stage_sparse_rows(idx, vals, b, mask, problem.n_features),
+            mask.to(torch.float32))
     return problem._kernel_batch_cache[n_workers]
 
 

@@ -5,9 +5,9 @@ Two engines share the data:
   * the loop engine solves one worker at a time on its sparse shard
     (gather for the margins, ``data.logreg.add_at`` for the gradient);
   * the batched engine runs all W workers as lanes of one FISTA, either
-    on the stacked sparse shards (``kernel="torch"``) or on dense shards
-    staged once on the device for the fused margin kernel
-    (``kernel="cuda"``).
+    on the stacked sparse shards (``kernel="torch"``) or on the same
+    shards staged once on the device as the fused margin kernel's rows
+    mode reads them (``kernel="cuda"``).
 """
 from __future__ import annotations
 
@@ -114,15 +114,13 @@ class LogRegProblem(base.BatchedShardProblem):
 
     # -- fused-kernel path (SchedulerConfig(kernel="cuda")) -----------------
     def kernel_batch_shards(self, n_workers: int):
-        """Dense twin of ``batch_shards`` for the margin kernel (see
-        ``base.dense_kernel_batch``)."""
-        return base.dense_kernel_batch(self, n_workers)
+        """The stacked shards staged as the margin kernel's rows mode reads
+        them (see ``base.sparse_kernel_batch``)."""
+        return base.sparse_kernel_batch(self, n_workers)
 
     def _masked_kernel_loss_value_and_grad(self, batch, mask):
-        A, b = batch
-
         def vg(X):
-            return ops.fused_logistic_vjp(A, b, X, mask=mask)
+            return ops.fused_logistic_vjp_rows(batch, X, mask=mask)
         return vg
 
     def prox_h(self, v, t):

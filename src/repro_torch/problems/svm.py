@@ -14,8 +14,9 @@ with the quadratically smoothed hinge
 
 Engines as for logreg: the loop engine gathers and scatters on one sparse
 shard; the batched engine runs all W lanes on the stacked sparse shards
-(``kernel="torch"``) or on dense shards staged once on the device for the
-fused margin kernel's hinge instantiation (``kernel="cuda"``).
+(``kernel="torch"``) or on the same shards staged once on the device for
+the hinge instantiation of the fused margin kernel's rows mode
+(``kernel="cuda"``).
 """
 from __future__ import annotations
 
@@ -96,16 +97,15 @@ class SVMProblem(base.FistaShardProblem):
 
     # -- fused-kernel path (SchedulerConfig(kernel="cuda")) -----------------
     def kernel_batch_shards(self, n_workers: int):
-        """Dense twin of ``batch_shards`` for the margin kernel (see
-        ``base.dense_kernel_batch``)."""
-        return base.dense_kernel_batch(self, n_workers)
+        """The stacked shards staged as the margin kernel's rows mode reads
+        them (see ``base.sparse_kernel_batch``)."""
+        return base.sparse_kernel_batch(self, n_workers)
 
     def _masked_kernel_loss_value_and_grad(self, batch, mask):
-        A, b = batch
         gamma = self.smoothing
 
         def vg(X):
-            return ops.fused_svm_vjp(A, b, X, gamma=gamma, mask=mask)
+            return ops.fused_svm_vjp_rows(batch, X, gamma=gamma, mask=mask)
         return vg
 
     def prox_h(self, v, t):

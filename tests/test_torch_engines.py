@@ -72,7 +72,8 @@ def test_float64_kernel_path_matches_jax_interpret(problem, kw):
                               x64=True)
     t_lv.reset_launches()
     got, zt = port_run(kw, 4, "batched", "cuda", shards, problem=problem)
-    assert t_lv.LAUNCHES == {"logistic": 0, "hinge": 0}
+    assert t_lv.LAUNCHES == {"logistic": 0, "hinge": 0,
+                             "logistic_rows": 0, "hinge_rows": 0}
     assert_traces_close(ref, got, 4)
     np.testing.assert_allclose(zt, zj, rtol=1e-4, atol=1e-4)
     assert zt.dtype == np.float64

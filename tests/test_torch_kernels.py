@@ -82,7 +82,8 @@ def test_ops_match_jax_wrappers_ragged(monkeypatch, loss, W, N, D):
     np.testing.assert_allclose(gt.numpy(), np.asarray(gj), **TOL)
     # the all-zero-mask lane gives exactly 0
     assert float(lt[0]) == 0.0 and not torch.any(gt[0])
-    assert t_lv.LAUNCHES == {"logistic": 0, "hinge": 0}
+    assert t_lv.LAUNCHES == {"logistic": 0, "hinge": 0,
+                             "logistic_rows": 0, "hinge_rows": 0}
 
 
 def test_ops_unbatched_form_and_default_mask():

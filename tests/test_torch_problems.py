@@ -43,6 +43,7 @@ from repro_torch.core.fista import FistaOptions               # noqa: E402
 from repro_torch.kernels import logistic_vjp as t_lv          # noqa: E402
 from repro_torch.kernels import ops as t_ops                  # noqa: E402
 from repro_torch.optim import compression as t_comp           # noqa: E402
+from repro_torch.problems import base as t_base               # noqa: E402
 from repro_torch.runtime import PoolConfig, SchedulerConfig   # noqa: E402
 from test_problems import SMALL                               # noqa: E402
 from test_torch_data import jax_config, partitionable         # noqa: E402
@@ -253,8 +254,13 @@ def test_svm_kernel_hook_launches_nothing_on_the_cpu():
     batch, mask = pt.kernel_batch_shards(4)
     pt._masked_kernel_loss_value_and_grad(batch, mask)(
         torch.zeros((4, pt.n_features)))
-    assert t_lv.LAUNCHES == {"logistic": 0, "hinge": 0}
-    assert batch[0].shape == (4, 13, 16)
+    assert t_lv.LAUNCHES == {"logistic": 0, "hinge": 0,
+                             "logistic_rows": 0, "hinge_rows": 0}
+    # the rows mode's staging: (W, N, k) rows and (W, d + 1) column starts
+    assert isinstance(batch, t_base.SparseRows)
+    k = pt._shard(0, 4)[0].shape[1]
+    assert batch.idx.shape == batch.vals.shape == (4, 13, k)
+    assert batch.col_ptr.shape == (4, 17)
 
 
 def test_lasso_direct_solve_matches_jax():

@@ -217,7 +217,8 @@ def test_default_instance_float32_matches_jax(engine, kernel):
                                    atol=1e-9, err_msg=key)
     np.testing.assert_allclose(zt, zj, rtol=0, atol=1e-2)
     # on the CPU the fused wrappers ran their plain versions
-    assert t_lv.LAUNCHES == {"logistic": 0, "hinge": 0}
+    assert t_lv.LAUNCHES == {"logistic": 0, "hinge": 0,
+                             "logistic_rows": 0, "hinge_rows": 0}
     assert t_st.LAUNCHES == {"soft_threshold": 0}
 
 
